@@ -1,0 +1,161 @@
+"""Cone compilation, projection and the certificates' membership tests of
+cosmo_tpu_torch against cosmo_tpu, in float64 on the CPU.
+
+A mixed cone list (Zero, Nonnegatives, Box, SOC, PSD triangles of sides 3,
+8 and 16 and a square PSD block) is compiled by the JAX package and carried
+across with cosmo_tpu_torch.convert, so both packages project through the
+identical compiled structure. Projections are compared to 1e-10 (the PSD
+blocks go through independent eigensolvers of LAPACK-level accuracy); the
+membership tests must agree exactly."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import cosmo_tpu as ct
+import cosmo_tpu_torch as pt
+from cosmo_tpu.ops import conedata as jcd
+from cosmo_tpu.ops import projections as jproj
+from cosmo_tpu_torch import convert
+from cosmo_tpu_torch.ops import conedata as tcd
+from cosmo_tpu_torch.ops import projections as tproj
+
+from _torch_port import as_numpy_dict
+
+torch.set_num_threads(1)
+F64 = torch.float64
+_jproject = jax.jit(jproj.project)   # one compile per cone structure
+
+
+def _sets(mod):
+    return [
+        mod.ZeroSet(3), mod.Nonnegatives(4),
+        mod.Box(np.array([-1.0, 0.0, -np.inf]), np.array([1.0, np.inf, 2.0])),
+        mod.SecondOrderCone(4), mod.SecondOrderCone(3),
+        mod.PsdConeTriangle(6), mod.PsdConeTriangle(36), mod.PsdConeTriangle(136),
+        mod.PsdConeTriangle(136), mod.PsdCone(9),
+    ]
+
+
+def _compiled(backend_j="xla", **kw):
+    jc = jcd.compile_cones(_sets(ct), dtype=np.float64, eigh_backend=backend_j, **kw)
+    return jc, convert.cones_from_dict(as_numpy_dict(jc), "cpu", F64)
+
+
+def _vectors(m, seed, count=4):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(m) * s for s in (1.0, 3.0, 0.1, 10.0)][:count]
+
+
+def test_compile_cones_matches_reference():
+    """The port's own compile_cones builds the same arrays as the JAX one."""
+    jc = jcd.compile_cones(_sets(ct), dtype=np.float64, eigh_backend="xla")
+    tc = tcd.compile_cones(_sets(pt), dtype=np.float64, eigh_backend="xla")
+    jd, td = as_numpy_dict(jc), as_numpy_dict(tc)
+    for name, tv in td.items():
+        if name in ("soc_buckets", "psd_buckets"):
+            assert len(tv) == len(jd[name])
+            for jb, tb in zip(jd[name], tv):
+                for f, v in tb.items():
+                    if isinstance(v, np.ndarray):
+                        assert np.array_equal(v, jb[f]), f
+                    else:
+                        assert v == jb[f], f
+        elif isinstance(tv, np.ndarray):
+            assert np.array_equal(tv, jd[name]), name
+        else:
+            assert tv == jd[name], name
+
+
+@pytest.mark.parametrize("backend_j,backend_t", [("xla", "xla"), ("jacobi", "jacobi"),
+                                                 ("jacobi", "pallas")])
+def test_project_matches(backend_j, backend_t):
+    jc, tc = _compiled(backend_j)
+    tc = dataclasses.replace(tc, eigh_backend=backend_t)
+    for v in _vectors(jc.m, seed=0):
+        js, _ = _jproject(jnp.asarray(v), jc)
+        ts = tproj.project(torch.as_tensor(v), tc)
+        assert np.abs(np.asarray(js) - ts.numpy()).max() <= 1e-10 * max(1.0, np.abs(v).max())
+
+
+def test_polar_projection_matches():
+    """The Newton-Schulz polar projection (the auto choice for buckets the
+    kernel does not take on a card), same schedule in both packages."""
+    jc, tc = _compiled("polar")
+    for v in _vectors(jc.m, seed=5, count=2):
+        js, _ = _jproject(jnp.asarray(v), jc)
+        ts = tproj.project(torch.as_tensor(v), tc)
+        assert np.abs(np.asarray(js) - ts.numpy()).max() <= 1e-10 * np.abs(v).max()
+
+
+def _membership_inputs(m):
+    """Vectors on both sides of the membership tests: random ones, and
+    ones pushed towards K (projected) and towards -K."""
+    jc, _ = _compiled("xla")
+    out = []
+    for v in _vectors(m, seed=2):
+        p = np.array(_jproject(jnp.asarray(v), jc)[0])
+        out += [v, p, -p, p - v]
+    return out
+
+
+def test_in_pol_recc_multi_matches():
+    jc, tc = _compiled("xla")
+    tols = (1e-4, 1e-2)
+    seen = set()
+    for v in _membership_inputs(jc.m):
+        jr = jproj.in_pol_recc_multi(jnp.asarray(v), jc, tuple(jnp.asarray(t) for t in tols))
+        tr = tproj.in_pol_recc_multi(torch.as_tensor(v), tc,
+                                     tuple(torch.tensor(t, dtype=F64) for t in tols))
+        assert [bool(x) for x in jr] == [bool(x) for x in tr]
+        seen.update(bool(x) for x in tr)
+    assert seen == {True, False}
+
+
+def test_support_function_multi_matches():
+    jc, tc = _compiled("xla")
+    tols = (1e-4, 1e-2)
+    seen_finite = seen_inf = False
+    for v in _membership_inputs(jc.m):
+        jr = jproj.support_function_multi(jnp.asarray(v), jc, tuple(jnp.asarray(t) for t in tols))
+        tr = tproj.support_function_multi(torch.as_tensor(v), tc,
+                                          tuple(torch.tensor(t, dtype=F64) for t in tols))
+        for a, b in zip(jr, tr):
+            a, b = float(a), float(b)
+            assert (np.isinf(a) and a == b) or abs(a - b) <= 1e-12 * max(1.0, abs(a))
+            seen_finite |= np.isfinite(b)
+            seen_inf |= np.isinf(b)
+    assert seen_finite and seen_inf
+
+
+def test_auto_backend_rule():
+    """"auto" resolves for the solve's device: eigh on the CPU; on a CUDA
+    device the kernel for one bucket of side <= 16 without Anderson, polar
+    otherwise (cosmo_tpu.ops.conedata.resolve_eigh_backend)."""
+    one = [pt.PsdConeTriangle(136)] * 3
+    kw = dict(dtype=np.float64, eigh_backend="auto")
+    assert tcd.compile_cones(one, accel_on=False, **kw).eigh_backend == "xla"
+    assert tcd.compile_cones(one, accel_on=False, device="cuda", **kw).eigh_backend == "pallas"
+    assert tcd.compile_cones(one, accel_on=True, device="cuda", **kw).eigh_backend == "polar"
+    big = [pt.PsdConeTriangle(300)]
+    assert tcd.compile_cones(big, accel_on=False, device="cuda", **kw).eigh_backend == "polar"
+    # several buckets: the dominant small-side bucket with >= 256 blocks
+    many = [pt.PsdConeTriangle(36)] * 256 + [pt.PsdConeTriangle(300)]
+    tc = tcd.compile_cones(many, accel_on=False, device="cuda", **kw)
+    assert tc.eigh_backend == "polar"
+    assert [b.backend for b in tc.psd_buckets] == ["pallas", ""]
+
+
+@pytest.mark.parametrize("sets,backend", [
+    ([pt.ExponentialCone()], "xla"), ([pt.PowerCone(0.5)], "xla"),
+    ([pt.PsdConeTriangleComplex(4)], "xla"), ([pt.PsdConeTriangleColPad(9)], "xla"),
+    ([pt.PsdConeTriangle(tri) for tri in (2145,)], "xla"),   # side 65: shear
+    ([pt.PsdConeTriangle(6)], "amortized"), ([pt.PsdConeTriangle(6)], "jacobi_mm"),
+])
+def test_unported_cone_features_raise(sets, backend):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tcd.compile_cones(sets, dtype=np.float64, eigh_backend=backend)

@@ -7,17 +7,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions;
-2. build: compiles ``cosmo_tpu_torch/csrc/jacobi_proj.cu`` with nvcc for
-   sm_90a (the ptxas report is printed);
-3. kernel: holds the Jacobi projection kernel against its plain PyTorch
-   version on the card (float32 and float64, k in {8, 16, 32, 48}, B in
-   {1, 512, 8540}) and times kernel, plain version and the
-   ``torch.linalg.eigh`` yardstick with CUDA events;
+2. build: compiles ``cosmo_tpu_torch/csrc/jacobi_proj.cu`` and
+   ``jacobi_proj_rr.cu`` with nvcc for sm_90a, one nvcc per source, all
+   started together (each ptxas report is printed);
+3. kernel: holds the serial and the round-parallel Jacobi projection
+   kernels against their plain PyTorch versions on the card (float32 and
+   float64, k in {8, 16, 32, 48}, B in {1, 512, 2498, 8540}) and times
+   kernel, plain version (not at B = 8540) and the ``torch.linalg.eigh``
+   yardstick with CUDA events;
 4. slice: solves ``problems.block_sdp(512, 16, 512, seed=0)`` with CSR A
    through ``Model.optimize`` on the card with plain ADMM, in float64 and
    float32 (a first solve, then a second on the same model), against the
    known objective, and checks that every projection of each solve went
-   through the kernel; then the four known answers in float64.
+   through the kernel; then the four known answers in float64;
+5. decomposed: solves ``problems.banded_sdp(10000, 8, seed=0, sparse=True)``
+   through chordal decomposition and the block-diagonal KKT in float64,
+   once with the serial kernel and once with ``COSMO_TPU_PALLAS_RR=1``
+   (each a first solve, then a second on the same model), against the
+   known objective, and checks that every projection of each solve went
+   through the kernel that run selects and none through the other.
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -31,10 +39,16 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 REF_OBJ = -0.5062352079829      # cosmo_tpu, CPU f64, eps 1e-5 (Solved)
+# cosmo_tpu on the CPU in float64: Model(Settings(decompose=True,
+# accelerator=None, dtype=np.float64, eps_abs=1e-5, eps_rel=1e-5,
+# max_iter=20000)).set(*problems.banded_sdp(10000, 8, seed=0, sparse=True)[:5])
+# .optimize() -> Solved, 2925 iterations, 5 rho updates
+REF_BANDED = 26934.834386732622
 SWEEPS = 8                      # Settings.jacobi_sweeps default
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): float32 and
 # float64 outside the tensor cores, and HBM3 bandwidth
@@ -62,15 +76,20 @@ def phase_environment():
 
 
 def phase_build():
+    """Both kernel sources, one nvcc each, started together."""
     from cosmo_tpu_torch.ops import jacobi_proj as J
+    from cosmo_tpu_torch.ops import jacobi_proj_rr as R
 
     t0 = time.perf_counter()
-    so = J.build()
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda mod: mod.build(), (J, R)))
     seconds = time.perf_counter() - t0
-    log(f"[build] {so.name} in {seconds:.2f} s")
-    report = so.with_suffix(".log")
-    if report.is_file():
-        log(report.read_text().strip())
+    for so in libs:
+        log(f"[build] {so.name}")
+        report = so.with_suffix(".log")
+        if report.is_file():
+            log(report.read_text().strip())
+    log(f"[build] both in {seconds:.2f} s")
     return seconds
 
 
@@ -112,12 +131,23 @@ def jacobi_bound_ms(B, k, dtype_name, sweeps=SWEEPS):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_kernel(device, ks=(8, 16, 32, 48), Bs=(1, 512, 8540),
-                 dtypes=("float32", "float64"), reps=20):
-    """Kernel vs plain version at every shape; timings at each shape."""
+def _kernels():
+    """name -> (uncounted launch, plain version) of each Jacobi kernel."""
+    from cosmo_tpu_torch.ops import jacobi_proj as J
+    from cosmo_tpu_torch.ops import jacobi_proj_rr as R
+
+    return {"jacobi_proj": (J.jacobi_proj_cuda, J.psd_project_jacobi_plain),
+            "jacobi_proj_rr": (R.jacobi_proj_rr_cuda, R.psd_project_jacobi_rr_plain)}
+
+
+def phase_kernel(device, ks=(8, 16, 32, 48), Bs=(1, 512, 2498, 8540),
+                 dtypes=("float32", "float64"), reps=20, plain_max_B=2498):
+    """Each kernel vs its plain version at every shape; timings at each
+    shape (the plain version's only up to ``plain_max_B``; the eigh
+    yardstick once a shape, shared by both kernels, which also share the
+    bound: they do the same rotations)."""
     import torch
     from cosmo_tpu_torch.ops import eigh as E
-    from cosmo_tpu_torch.ops import jacobi_proj as J
 
     rows = []
     for dtype_name in dtypes:
@@ -125,31 +155,34 @@ def phase_kernel(device, ks=(8, 16, 32, 48), Bs=(1, 512, 8540),
         for k in ks:
             for B in Bs:
                 X = _stack(B, k, dtype, device, seed=1000 * k + B)
-                got = J.jacobi_proj_cuda(X, SWEEPS)      # uncounted launch
-                torch.cuda.synchronize()
-                ref = J.psd_project_jacobi_plain(X, SWEEPS)
-                err = (got - ref).abs().max().item()
-                scale = X.abs().max().item()
-                ok = bool(np.isfinite(err)) and err <= TOL[dtype_name] * scale
                 big = B * k * k > 512 * 16 * 16 * 8
-                row = dict(
-                    dtype=dtype_name, k=k, B=B, max_abs_err=err,
-                    max_abs_x=scale, tol_rel=TOL[dtype_name], ok=ok,
-                    ms=time_ms(lambda: J.jacobi_proj_cuda(X, SWEEPS), reps),
-                    plain_ms=time_ms(lambda: J.psd_project_jacobi_plain(X, SWEEPS),
-                                     2 if big else 5),
-                    library_ms=time_ms(lambda: E.psd_project_eigh(X), 3 if big else reps),
-                )
-                row["bound_ms"], row["bound_by"] = jacobi_bound_ms(B, k, dtype_name)
-                rows.append(row)
-                log(f"[kernel] {dtype_name} k={k:2d} B={B:5d} err={err:.3e} "
-                    f"(tol {TOL[dtype_name]:.0e}*{scale:.2f}) ms={row['ms']:.4f} "
-                    f"plain={row['plain_ms']:.3f} eigh={row['library_ms']:.3f} "
-                    f"bound={row['bound_ms']:.5f} ({row['bound_by']}) "
-                    f"{'ok' if ok else 'FAIL'}")
+                library_ms = time_ms(lambda: E.psd_project_eigh(X), 3 if big else reps)
+                bound_ms, bound_by = jacobi_bound_ms(B, k, dtype_name)
+                for name, (launch, plain) in _kernels().items():
+                    got = launch(X, SWEEPS)
+                    torch.cuda.synchronize()
+                    ref = plain(X, SWEEPS)
+                    err = (got - ref).abs().max().item()
+                    scale = X.abs().max().item()
+                    ok = bool(np.isfinite(err)) and err <= TOL[dtype_name] * scale
+                    row = dict(
+                        kernel=name, dtype=dtype_name, k=k, B=B, max_abs_err=err,
+                        max_abs_x=scale, tol_rel=TOL[dtype_name], ok=ok,
+                        ms=time_ms(lambda: launch(X, SWEEPS), reps),
+                        plain_ms=(time_ms(lambda: plain(X, SWEEPS), 2 if big else 5)
+                                  if B <= plain_max_B else None),
+                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    )
+                    rows.append(row)
+                    plain_s = ("-" if row["plain_ms"] is None
+                               else f"{row['plain_ms']:.3f}")
+                    log(f"[kernel] {name} {dtype_name} k={k:2d} B={B:5d} err={err:.3e} "
+                        f"(tol {TOL[dtype_name]:.0e}*{scale:.2f}) ms={row['ms']:.4f} "
+                        f"plain={plain_s} eigh={library_ms:.3f} "
+                        f"bound={bound_ms:.5f} ({bound_by}) {'ok' if ok else 'FAIL'}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
-        raise AssertionError(f"kernel disagrees with its plain version: {bad}")
+        raise AssertionError(f"a kernel disagrees with its plain version: {bad}")
     return rows
 
 
@@ -166,13 +199,15 @@ def block_sdp_model(device, dtype, n_blocks=512, side=16, n=512, seed=0):
 
 
 def counted_optimize(model):
-    """model.optimize() with the kernel's launch count set to 0 just
-    before and read just after; returns (result, launches)."""
+    """model.optimize() with both kernels' launch counts set to 0 just
+    before and read just after; returns (result, {kernel: launches})."""
     from cosmo_tpu_torch.ops import jacobi_proj as J
+    from cosmo_tpu_torch.ops import jacobi_proj_rr as R
 
-    J.psd_project_pallas.launches = 0
+    J.psd_project_pallas.launches = R.psd_project_rr.launches = 0
     res = model.optimize()
-    return res, J.psd_project_pallas.launches
+    return res, {"jacobi_proj": J.psd_project_pallas.launches,
+                 "jacobi_proj_rr": R.psd_project_rr.launches}
 
 
 def phase_slice(device, smi):
@@ -184,7 +219,8 @@ def phase_slice(device, smi):
         name = "float64" if dtype is not None else "float32"
         model = block_sdp_model(device, dtype)
         for run in ("cold", "warm"):
-            res, launches = counted_optimize(model)
+            res, counts = counted_optimize(model)
+            launches = counts["jacobi_proj"]
             info = model.last_solve
             err = abs(res.obj_val - REF_OBJ) / abs(REF_OBJ)
             ips = res.iter / info["iter_time"]
@@ -198,13 +234,67 @@ def phase_slice(device, smi):
                 raise AssertionError(f"block_sdp {name}: {res.status}, obj {res.obj_val}")
             if info["A_layout"] != "Bde" or info["bucket_backends"] != ("pallas",):
                 raise AssertionError(f"block_sdp {name} left the main path: {info}")
-            if not launches == info["projections"] > 0:
-                raise AssertionError(f"block_sdp {name}: {launches} kernel launches for "
+            if not launches == info["projections"] > 0 or counts["jacobi_proj_rr"]:
+                raise AssertionError(f"block_sdp {name}: {counts} kernel launches for "
                                      f"{info['projections']} projections")
             out[f"{name}_{run}"] = dict(
                 status=res.status, iter=res.iter, obj=res.obj_val, rel_err=err,
                 setup_s=res.times.setup_time, solve_s=info["iter_time"],
                 iter_per_s=ips, launches=launches, projections=info["projections"])
+    return out
+
+
+def phase_decomposed(device, smi):
+    """The decomposed banded SDP through the block-diagonal KKT in float64:
+    one run with the default (serial) kernel, one with COSMO_TPU_PALLAS_RR
+    set for that run only; each solves cold (a new model: decomposition,
+    analysis, copies) and then warm (the same model: every cache hits)."""
+    import cosmo_tpu_torch as pt
+    from cosmo_tpu_torch import native, problems
+
+    t0 = time.perf_counter()
+    data = problems.banded_sdp(10000, 8, seed=0, sparse=True)[:5]
+    log(f"[decomposed] banded_sdp(10000, 8) generated in "
+        f"{time.perf_counter() - t0:.2f} s")
+    settings = pt.Settings(decompose=True, accelerator=None, dtype=np.float64,
+                           eps_abs=1e-5, eps_rel=1e-5, max_iter=20000)
+    out = {}
+    for kernel, env in (("jacobi_proj", None), ("jacobi_proj_rr", "1")):
+        other = "jacobi_proj_rr" if kernel == "jacobi_proj" else "jacobi_proj"
+        if env is not None:
+            os.environ["COSMO_TPU_PALLAS_RR"] = env
+        try:
+            model = pt.Model(settings, device=device).set(*data)
+            for run in ("cold", "warm"):
+                res, counts = counted_optimize(model)
+                info, t = model.last_solve, res.times
+                err = abs(res.obj_val - REF_BANDED) / abs(REF_BANDED)
+                ips = res.iter / info["iter_time"]
+                log(f"[decomposed] {kernel} {run}: {res.status}, {res.iter} iters, obj "
+                    f"{res.obj_val:.12f} (rel err {err:.2e}, limit 1e-06), graph "
+                    f"{t.graph_time:.3f} s, setup {t.setup_time:.3f} s, solve "
+                    f"{info['iter_time']:.3f} s, {ips:.1f} iter/s, post {t.post_time:.3f} s, "
+                    f"KKT {info['kkt_solver']}, {info['chordal_blocks']} blocks, PSD "
+                    f"backend {info['bucket_backends']}, kernel {info['jacobi_kernel']}, "
+                    f"launches {counts} / projections {info['projections']}, native "
+                    f"library {native.available()} [{smi}]")
+                if res.status != "Solved" or not err <= 1e-6:
+                    raise AssertionError(f"banded {kernel}: {res.status}, obj {res.obj_val}")
+                if (info["kkt_solver"] != "blockdiag"
+                        or info["bucket_backends"] != ("pallas",)
+                        or info["jacobi_kernel"] != kernel):
+                    raise AssertionError(f"banded {kernel} left the main path: {info}")
+                if not counts[kernel] == info["projections"] > 0 or counts[other]:
+                    raise AssertionError(f"banded {kernel}: {counts} kernel launches for "
+                                         f"{info['projections']} projections")
+                out[f"{kernel}_{run}"] = dict(
+                    status=res.status, iter=res.iter, obj=res.obj_val, rel_err=err,
+                    graph_s=t.graph_time, setup_s=t.setup_time, solve_s=info["iter_time"],
+                    post_s=t.post_time, iter_per_s=ips, launches=counts[kernel],
+                    projections=info["projections"], blocks=info["chordal_blocks"],
+                    native=native.available())
+        finally:
+            os.environ.pop("COSMO_TPU_PALLAS_RR", None)
     return out
 
 
@@ -273,33 +363,51 @@ def main(argv=None):
     import cosmo_tpu_torch  # noqa: F401  (fails outside the repository)
 
     device = torch.device("cuda")
+    t0 = time.perf_counter()
     smi = phase_environment()
     build_s = phase_build()
-    kernel_rows = phase_kernel(device)
-    slice_out = phase_slice(device, smi)
-    known = phase_known_answers(device)
+    seconds = {"build": build_s}
 
-    main_row = next(r for r in kernel_rows
-                    if r["dtype"] == "float32" and r["k"] == 16 and r["B"] == 512)
-    kernels = [dict(
-        name="jacobi_proj",
-        route="cuda",
-        source="cosmo_tpu_torch/csrc/jacobi_proj.cu",
-        replaces="cosmo_tpu/ops/pallas_eigh.py:132",
-        launches=slice_out["float32_warm"]["launches"],
-        max_abs_err=main_row["max_abs_err"],
-        ms=main_row["ms"],
-        plain_ms=main_row["plain_ms"],
-        bound_ms=main_row["bound_ms"],
-        bound_by=main_row["bound_by"],
-        library_ms=main_row["library_ms"],
-    )]
+    def timed(name, run):
+        t = time.perf_counter()
+        out = run()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    kernel_rows = timed("kernel", lambda: phase_kernel(device))
+    slice_out = timed("slice", lambda: phase_slice(device, smi))
+    known = timed("known", lambda: phase_known_answers(device))
+    decomposed = timed("decomposed", lambda: phase_decomposed(device, smi))
+    seconds["total"] = time.perf_counter() - t0
+    log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+
+    # each kernel at the decomposed path's shape (float64, B = 2498, k = 16),
+    # with the launches of that path's warm solve
+    kernels = []
+    for name, replaces in (("jacobi_proj", "cosmo_tpu/ops/pallas_eigh.py:132"),
+                           ("jacobi_proj_rr", "cosmo_tpu/ops/pallas_eigh.py:69")):
+        row = next(r for r in kernel_rows if r["kernel"] == name
+                   and r["dtype"] == "float64" and r["k"] == 16 and r["B"] == 2498)
+        kernels.append(dict(
+            name=name,
+            route="cuda",
+            source=f"cosmo_tpu_torch/csrc/{name}.cu",
+            replaces=replaces,
+            launches=decomposed[f"{name}_warm"]["launches"],
+            max_abs_err=row["max_abs_err"],
+            ms=row["ms"],
+            plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"],
+            library_ms=row["library_ms"],
+        ))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
-                           build_s=build_s, kernel=kernel_rows, slice=slice_out,
-                           known=known, kernels=kernels), f, indent=1)
+                           seconds=seconds, kernel=kernel_rows, slice=slice_out,
+                           known=known, decomposed=decomposed, kernels=kernels),
+                      f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

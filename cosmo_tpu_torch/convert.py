@@ -1,11 +1,14 @@
 """Carry a compiled problem from the JAX package into this one.
 
 A solver has no weights: its state is the compiled cone data, the
-block-dense constraint matrix and the settings. These functions take them
-as plain dicts of numpy arrays and Python scalars — the dataclass fields of
-a ``cosmo_tpu`` ``ConeData`` (with its ``SocBucket``/``PsdBucket`` tuples as
-lists of dicts), of a ``Bde``, and of a ``Settings`` — so both packages can
-be run on identical structures without this package importing JAX.
+constraint matrix, the chordal decomposition, the block KKT's structure
+and the settings. These functions take them as plain dicts of numpy arrays,
+scipy matrices and Python scalars — the dataclass fields of a ``cosmo_tpu``
+``ConeData`` (with its ``SocBucket``/``PsdBucket`` tuples as lists of
+dicts), ``Bde``, ``ChordalInfo``, ``BlockKKTMeta`` and ``Settings``, and a
+cone as the dict of its dataclass fields plus ``"type"``, its class name —
+so both packages can be run on identical structures without this package
+importing JAX.
 """
 from __future__ import annotations
 
@@ -13,7 +16,9 @@ import dataclasses
 
 import torch
 
-from .ops import conedata, linops
+from .chordal import transform, trees
+from .models import cones as C
+from .ops import blockkkt, conedata, linops
 from .ops.conedata import not_ported
 from .settings import Settings
 
@@ -53,3 +58,48 @@ def bde_from_dict(d: dict, device, dtype: torch.dtype) -> linops.Bde:
 def settings_from_dict(d: dict) -> Settings:
     """``dataclasses.asdict`` of a ``cosmo_tpu.Settings`` -> Settings."""
     return Settings.from_dict(d)
+
+
+def cone_from_dict(d: dict) -> C.ConvexSet:
+    """A cone as ``{"type": class name, **dataclass fields}`` -> this
+    package's cone of that class."""
+    cls = getattr(C, d["type"])
+    return cls(**{f.name: d[f.name] for f in dataclasses.fields(cls)
+                  if f.init and f.name in d})
+
+
+def chordal_info_from_dict(d: dict) -> transform.ChordalInfo:
+    """A ``cosmo_tpu.chordal.ChordalInfo`` as a dict (its ``problem`` a
+    tuple ``(P, q, A, b, sets)``, its patterns' trees as dicts) -> this
+    package's ChordalInfo."""
+    P, q, A, b, sets = d["problem"]
+    patterns = []
+    for p in d["patterns"]:
+        tree = dict(p["tree"])
+        tree["merge_log"] = trees.MergeLog(**tree["merge_log"])
+        patterns.append(transform.SparsityPattern(
+            tree=trees.CliqueTree(**tree),
+            **{k: v for k, v in p.items() if k != "tree"}))
+    top = _pick(transform.ChordalInfo, d)
+    top.update(problem=(P, q, A, b, [cone_from_dict(s) for s in sets]),
+               sets_orig=[cone_from_dict(s) for s in d["sets_orig"]],
+               patterns=patterns)
+    return transform.ChordalInfo(**top)
+
+
+def blockkkt_meta_from_dict(d: dict, device) -> blockkkt.BlockKKTMeta:
+    """A ``cosmo_tpu.ops.blockkkt.BlockKKTMeta`` as a dict -> this
+    package's BlockKKTMeta on ``device``. Its double-f32 assembly maps
+    (``m_*``) and mesh ``spec`` are dropped: this package has no
+    refinement and no mesh yet."""
+    buckets = tuple(blockkkt.BlockBucket(**_pick(blockkkt.BlockBucket, b))
+                    for b in d["buckets"])
+    return blockkkt.meta_to_device(
+        blockkkt.BlockKKTMeta(n=int(d["n"]), buckets=buckets), device)
+
+
+def coo_from_dict(d: dict, device, dtype: torch.dtype) -> linops.Coo:
+    """A ``cosmo_tpu.ops.linops.Coo`` as a dict -> this package's Coo on
+    ``device`` (its segment pointers, which serve the double-f32 matvecs,
+    are dropped)."""
+    return linops.coo_to_device(linops.Coo(**_pick(linops.Coo, d)), device, dtype)

@@ -3,9 +3,16 @@ port of ``cosmo_tpu.models.model``; reference: src/interface.jl).
 
 This layer prepares numpy data on the host — constraint merging, canonical
 set ordering, the ``A <- -A`` sign flip that turns ``Ax + b in K`` into
-``Ax + s = b, s in K`` — moves it to the model's torch device and unpacks
-the solver's result. A ``Model`` runs on ``cuda`` unless it is given
-``device="cpu"``.
+``Ax + s = b, s in K``, the chordal decomposition of sparse PSD cones and
+the block-diagonal KKT's structure analysis — moves it to the model's torch
+device and unpacks the solver's result, reversing the decomposition. A
+``Model`` runs on ``cuda`` unless it is given ``device="cpu"``.
+
+The host structures are cached across ``optimize()`` calls on the same
+data, as in ``cosmo_tpu``: the decomposition by its settings
+(``decomp_key``), the block KKT's analysis, and the device copies of the
+operators, cones and vectors by the solve's structure (``struct_key``).
+``set``/``assemble`` drop them.
 """
 from __future__ import annotations
 
@@ -17,19 +24,15 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .. import chordal
 from .. import results as results_mod
 from .. import solver as solver_mod
-from ..ops import conedata
+from ..ops import blockkkt, conedata, jacobi_proj
 from ..ops import linops
 from ..ops.conedata import not_ported
-from ..settings import KKT_DENSE, Settings, split_settings, torch_dtype
+from ..settings import KKT_BLOCK, KKT_DENSE, Settings, split_settings, torch_dtype
 from . import cones as C
 from .constraint import Constraint
-
-# the block-diagonal KKT's structure limits (cosmo_tpu.ops.blockkkt)
-_BLOCK_LADDER_MAX_PAIRS = 40_000_000
-_BLOCK_MAX_MEM = 2 << 30
-_BLOCK_LADDER = (1, 2, 4, 8, 16, 32, 64)
 
 
 def _to_dense(M) -> np.ndarray:
@@ -59,44 +62,6 @@ def _full_f32_matmuls():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
-def _canonical_coo(X):
-    Xc = sp.coo_matrix(sp.csr_matrix(X))
-    r = np.asarray(Xc.row, dtype=np.int64)
-    c = np.asarray(Xc.col, dtype=np.int64)
-    p = np.lexsort((c, r))
-    return r[p], c[p]
-
-
-def block_kkt_applies(P, A, max_block: int) -> bool:
-    """Whether the JAX package's block-diagonal KKT (blockkkt.analyze) would
-    take this sparse problem: the reduced system decouples into components
-    of at most ``max_block`` columns within its memory limits. The port
-    has no block KKT yet, so such a problem must raise rather than run the
-    dense KKT in its place."""
-    from scipy.sparse.csgraph import connected_components
-
-    m, n = A.shape
-    ar, ac = _canonical_coo(A)
-    prow, pcol = _canonical_coo(P)
-    counts = np.bincount(ar, minlength=m).astype(np.int64)
-    if counts.size and counts.max() > max_block:
-        return False
-    if int((counts**2).sum()) + prow.size > _BLOCK_LADDER_MAX_PAIRS:
-        return False
-    same = ar[1:] == ar[:-1]
-    eu = np.concatenate([ac[:-1][same], prow[prow != pcol]])
-    ev = np.concatenate([ac[1:][same], pcol[prow != pcol]])
-    graph = sp.csr_matrix((np.ones(eu.size, np.int8), (eu, ev)), shape=(n, n))
-    n_comp, labels = connected_components(graph, directed=False)
-    sizes = np.bincount(labels, minlength=n_comp).astype(np.int64)
-    if sizes.max() > max_block:
-        return False
-    pad = np.empty(n_comp, np.int64)
-    for k in _BLOCK_LADDER[::-1]:
-        pad[sizes <= k] = k
-    return int((pad**2).sum()) * 8 <= _BLOCK_MAX_MEM
-
-
 class Model:
     """Problem container and solve orchestration (reference Workspace/Model,
     src/types.jl:348-403). ``device``: where the solve runs; None means
@@ -114,8 +79,15 @@ class Model:
         self.P = self.q = self.A = self.b = None
         self.sets: List[C.ConvexSet] = []
         self.is_assembled = False
+        self._drop_caches()
         # what the last solve ran with, for introspection and tests
         self.last_solve: dict = {}
+
+    def _drop_caches(self):
+        self._chordal_info = None
+        self._decomp_key = None
+        self._blockkkt_cache = None
+        self._dev_cache = None
 
     # -- assembly ------------------------------------------------------
     def assemble(self, P, q, constraints: Union[Constraint, Sequence[Constraint]],
@@ -180,6 +152,7 @@ class Model:
     def _store(self, P, q, A, b, sets):
         self.P, self.q, self.A, self.b, self.sets = P, q, A, b, sets
         self.is_assembled = True
+        self._drop_caches()
         return self
 
     # -- solve -----------------------------------------------------------
@@ -189,47 +162,122 @@ class Model:
         if settings.accelerator is not None:
             raise not_ported("Anderson acceleration (pass accelerator=None)",
                              "Anderson acceleration")
-        if settings.decompose and any(
-            isinstance(s, (C.PsdCone, C.PsdConeTriangle))
-            and getattr(s, "decomposable", False) for s in self.sets
-        ):
-            raise not_ported("chordal decomposition (pass decompose=False)",
-                             "chordal decomposition")
-        if not isinstance(settings.kkt_solver, str) or settings.kkt_solver != KKT_DENSE:
+        if not isinstance(settings.kkt_solver, str) or settings.kkt_solver not in (
+                KKT_DENSE, KKT_BLOCK):
             raise not_ported(f"kkt_solver={settings.kkt_solver!r}",
                              "Coo + CG" if settings.kkt_solver in ("cg", "minres")
-                             else "block-diagonal KKT")
+                             else "custom KKT solvers")
         if settings.time_limit and settings.time_limit > 0:
             raise not_ported("time_limit > 0", "time limit and chunking")
         if settings.adaptive_rho and settings.adaptive_rho_interval == 0:
             raise not_ported("adaptive_rho_interval == 0 (the auto probe)",
                              "time limit and chunking")
 
-    def _device_operators(self, settings, dtype):
-        """(P, A) on the device: dense tensors, or a dense P and a
-        block-dense :class:`~cosmo_tpu_torch.ops.linops.Bde` A for sparse
-        input whose rows come in uniform per-cone blocks."""
-        P, A = self.P, self.A
-        m, n = A.shape
-        use_sparse = settings.sparse is True or (
-            settings.sparse == "auto" and (sp.issparse(A) or sp.issparse(P)))
+    def _device_operators(self, P, A, sets, use_sparse, kkt_block, settings, dtype):
+        """(P, A) on the device: dense tensors; both as
+        :class:`~cosmo_tpu_torch.ops.linops.Coo` for sparse input that takes
+        the block-diagonal KKT; or a dense P and a block-dense
+        :class:`~cosmo_tpu_torch.ops.linops.Bde` A for sparse input whose
+        rows come in uniform per-cone blocks."""
+        n = A.shape[1]
+        np_dtype = np.float32 if dtype == torch.float32 else np.float64
         if not use_sparse:
             return (torch.as_tensor(_to_dense(P), dtype=dtype, device=self.device),
                     torch.as_tensor(_to_dense(A), dtype=dtype, device=self.device))
-        if block_kkt_applies(P, A, int(settings.kkt_block_max)):
-            raise not_ported("a sparse problem whose reduced KKT system "
-                             "decouples (the block-diagonal KKT)",
-                             "block-diagonal KKT")
+        if kkt_block is not None:
+            return tuple(linops.coo_to_device(
+                linops.coo_from_scipy(sp.csr_matrix(M), np_dtype), self.device, dtype)
+                for M in (P, A))
         bde = None
-        dims = {s.dim for s in self.sets}
-        if n <= 2048 and len(dims) == 1:
+        dims = {s.dim for s in sets}
+        if n <= 2048 and len(dims) == 1 and settings.kkt_solver == KKT_DENSE:
             bde = linops.bde_from_scipy(sp.csr_matrix(A), rb=dims.pop())
         if bde is None:
-            raise not_ported("sparse input that does not take the block-dense "
-                             "row layout (pass sparse=False to densify)",
+            raise not_ported("sparse input that neither decouples into the "
+                             "block-diagonal KKT nor takes the block-dense row "
+                             "layout (pass sparse=False to densify)",
                              "Coo + CG")
         return (torch.as_tensor(_to_dense(P), dtype=dtype, device=self.device),
                 linops.bde_to_device(bde, self.device, dtype))
+
+    def _decompose(self, settings):
+        """(P, q, A, b, sets, chordal_info) of the problem to solve: the
+        decomposed one when a decomposable PSD cone decomposes. The
+        decomposition is cached by ``decomp_key``; a hit re-derives only q
+        and b (reference: the States caching flags, types.jl:330-337)."""
+        P, q, A, b, sets = self.P, self.q, self.A, self.b, self.sets
+        if not settings.decompose or not any(
+            isinstance(s, (C.PsdCone, C.PsdConeTriangle))
+            and getattr(s, "decomposable", False) for s in sets
+        ):
+            return P, q, A, b, sets, None
+        decomp_key = (settings.merge_strategy, settings.compact_transformation,
+                      settings.psd_pad_to, settings.colpad_min)
+        if self._chordal_info is None or self._decomp_key != decomp_key:
+            info = chordal.decompose(P, q, A, b, sets, settings)
+            if info is None:
+                return P, q, A, b, sets, None
+            self._chordal_info, self._decomp_key = info, decomp_key
+        info = self._chordal_info
+        q, b = info.refresh_qb(q, b)
+        P, _, A, _, sets = info.problem
+        return P, q, A, b, sets, info
+
+    def _device_problem(self, settings, dtype, P, q, A, b, sets, chordal_info):
+        """The device copies of the solve's structure and vectors, cached
+        by ``struct_key``: dict with cones, kkt_block (device meta or None),
+        Pd, Ad, qd, bd, the zero starting vectors and rho_row_scale."""
+        use_sparse = settings.sparse is True or (
+            settings.sparse == "auto" and (sp.issparse(A) or sp.issparse(P)))
+        struct_key = (
+            dtype, bool(use_sparse), self._decomp_key if chordal_info else None,
+            int(settings.psd_pad_to), settings.eigh_backend,
+            int(settings.jacobi_sweeps), settings.accelerator is not None,
+            settings.kkt_solver, int(settings.kkt_block_max),
+            float(settings.rho_overlap_scale),
+        )
+        cache = self._dev_cache
+        if cache is not None and cache["struct_key"] == struct_key:
+            return cache
+        np_dtype = np.float32 if dtype == torch.float32 else np.float64
+        cones = conedata.compile_cones(
+            sets, dtype=np_dtype, psd_pad_to=settings.psd_pad_to,
+            eigh_backend=settings.eigh_backend,
+            jacobi_sweeps=settings.jacobi_sweeps,
+            accel_on=settings.accelerator is not None,
+            decomposed=chordal_info is not None, device=self.device,
+        )
+        # sparse problems whose reduced KKT system decouples take the
+        # batched block-diagonal direct solve (always true for compact-
+        # decomposed dual-form SDPs); the analysis is structural and is
+        # cached apart from the device copies
+        kkt_block = None
+        if use_sparse and settings.kkt_solver in (KKT_DENSE, KKT_BLOCK):
+            bk_key = (int(settings.kkt_block_max), self._decomp_key,
+                      chordal_info is not None)
+            if self._blockkkt_cache is None or self._blockkkt_cache[0] != bk_key:
+                self._blockkkt_cache = (bk_key, blockkkt.analyze(
+                    sp.csr_matrix(P), sp.csr_matrix(A),
+                    max_block=int(settings.kkt_block_max)))
+            kkt_block = self._blockkkt_cache[1]
+        Pd, Ad = self._device_operators(P, A, sets, use_sparse, kkt_block,
+                                        settings, dtype)
+        m, n = A.shape
+
+        def vec(v):
+            return torch.as_tensor(v, dtype=dtype, device=self.device)
+
+        self._dev_cache = dict(
+            struct_key=struct_key,
+            cones=conedata.to_device(cones, self.device, dtype),
+            kkt_block=(None if kkt_block is None
+                       else blockkkt.meta_to_device(kkt_block, self.device)),
+            Pd=Pd, Ad=Ad, qd=vec(q), bd=vec(b),
+            x0=vec(np.zeros(n)), s0=vec(np.zeros(m)), mu0=vec(np.zeros(m)),
+            rho_row_scale=_rho_row_scale(settings, chordal_info, sets, m, dtype,
+                                         self.device),
+        )
+        return self._dev_cache
 
     def optimize(self, mesh=None) -> results_mod.Result:
         """Solve the assembled problem on the model's device."""
@@ -244,44 +292,58 @@ class Model:
         self._check_supported(settings, mesh)
         times = results_mod.ResultTimes()
         t_solver = time.perf_counter()
-        times.graph_time = 0.0
+
+        # ---- chordal decomposition (host, reference: chordal_decomposition.jl)
+        t_graph = time.perf_counter()
+        P, q, A, b, sets, chordal_info = self._decompose(settings)
+        times.graph_time = time.perf_counter() - t_graph
 
         t_setup = time.perf_counter()
         dtype = _default_dtype(settings, self.device)
-        np_dtype = np.float32 if dtype == torch.float32 else np.float64
-        m, n = self.A.shape
-        cones = conedata.compile_cones(
-            self.sets, dtype=np_dtype, psd_pad_to=settings.psd_pad_to,
-            eigh_backend=settings.eigh_backend,
-            jacobi_sweeps=settings.jacobi_sweeps,
-            accel_on=settings.accelerator is not None,
-            decomposed=False, device=self.device,
-        )
-        Pd, Ad = self._device_operators(settings, dtype)
-        cones = conedata.to_device(cones, self.device, dtype)
+        m, n = A.shape
+        dev = self._device_problem(settings, dtype, P, q, A, b, sets, chordal_info)
+        cones, kkt_block = dev["cones"], dev["kkt_block"]
+        if kkt_block is not None:
+            settings = settings.replace(kkt_solver=KKT_BLOCK)
+        if settings.adaptive_rho_tolerance <= 0:
+            # auto rho deadband: tight where the refactor is a cheap batched
+            # op, the reference's 5.0 elsewhere
+            settings = settings.replace(
+                adaptive_rho_tolerance=1.5 if settings.kkt_solver == KKT_BLOCK else 5.0)
+        # rho_eq-amplified rows (ZeroSet / Box l == u) or the compact
+        # decomposition's overlap columns make the auto kkt_refine_steps 1
+        # in float32 (the df32 endgame)
         refine_hint = any(
             isinstance(s, C.ZeroSet)
             or (isinstance(s, C.Box) and np.any(s.l == s.u))
-            for s in self.sets
-        )
+            for s in sets
+        ) or (chordal_info is not None and chordal_info.num_overlaps > 0)
         static, dyn = split_settings(settings, m, n, dtype,
                                      refine_hint=refine_hint, device=self.device)
-
-        def vec(v):
-            return torch.as_tensor(v, dtype=dtype, device=self.device)
-
         times.setup_time = time.perf_counter() - t_setup
+
         t_iter = time.perf_counter()
         with _full_f32_matmuls():
-            out = solver_mod.solve(Pd, Ad, vec(self.q), vec(self.b), cones,
-                                   vec(np.zeros(n)), vec(np.zeros(m)), vec(np.zeros(m)),
-                                   dyn, static)
+            out = solver_mod.solve(dev["Pd"], dev["Ad"], dev["qd"], dev["bd"], cones,
+                                   dev["x0"], dev["s0"], dev["mu0"], dyn, static,
+                                   kkt_block=kkt_block,
+                                   rho_row_scale=dev["rho_row_scale"])
         times.iter_time = time.perf_counter() - t_iter
+
+        t_post = time.perf_counter()
+        x, y, s = out["x"], out["y"], out["s"]
+        if chordal_info is not None:
+            x, y, s = chordal.reverse(chordal_info, x, y, s, settings)
+        times.post_time = time.perf_counter() - t_post
+        backends = tuple(b.backend or cones.eigh_backend for b in cones.psd_buckets)
         self.last_solve = dict(
-            device=self.device, dtype=dtype, A_layout=type(Ad).__name__,
-            eigh_backend=cones.eigh_backend,
-            bucket_backends=tuple(b.backend or cones.eigh_backend
-                                  for b in cones.psd_buckets),
+            device=self.device, dtype=dtype, A_layout=type(dev["Ad"]).__name__,
+            kkt_solver=settings.kkt_solver,
+            chordal_blocks=(0 if chordal_info is None else sum(
+                isinstance(s_, (C.PsdCone, C.PsdConeTriangle)) for s_ in sets)),
+            eigh_backend=cones.eigh_backend, bucket_backends=backends,
+            jacobi_kernel=(jacobi_proj.selected_kernel()
+                           if "pallas" in backends else None),
             projections=out["projections"], iter_time=times.iter_time,
         )
 
@@ -303,10 +365,9 @@ class Model:
             kkt_solver_iters=0,
             res_history=_order_history(out),
         )
-        times.post_time = 0.0
         times.solver_time = time.perf_counter() - t_solver
         result = results_mod.Result(
-            x=out["x"], y=out["y"], s=out["s"],
+            x=x, y=y, s=s,
             obj_val=float(out["cost"]),
             iter=int(out["iter"]),
             safeguarding_iter=0,
@@ -315,6 +376,30 @@ class Model:
             times=times,
         )
         return result
+
+
+def _rho_row_scale(settings, chordal_info, sets, m, dtype, device):
+    """Per-clique-block rho scale of a compact decomposition
+    (Settings.rho_overlap_scale, cosmo_tpu.models.model): a PSD block whose
+    real rows are a fraction f overlap rows gets rho_overlap_scale ** f.
+    The scale is one scalar per block, so mu stays in the normal cone.
+    None when it does not apply."""
+    if (settings.rho_overlap_scale == 1.0 or chordal_info is None
+            or chordal_info.mode != "compact" or chordal_info.num_overlaps == 0):
+        return None
+    ov = np.zeros(m, bool)
+    ov[np.asarray(chordal_info.ov_child_rows)] = True
+    ov[np.asarray(chordal_info.ov_parent_rows)] = True
+    scale = np.ones(m)
+    off = 0
+    for s_ in sets:
+        d_ = s_.dim
+        if isinstance(s_, (C.PsdCone, C.PsdConeTriangle)):
+            frac = float(ov[off:off + d_].sum()) / max(d_, 1)
+            if frac > 0.0:
+                scale[off:off + d_] = settings.rho_overlap_scale ** frac
+        off += d_
+    return torch.as_tensor(scale, dtype=dtype, device=device)
 
 
 def _order_history(out) -> "np.ndarray | None":

@@ -145,8 +145,9 @@ def to_device(cones: ConeData, device, dtype: torch.dtype) -> ConeData:
 
 
 def resolve_eigh_backend(requested: str, buckets=None, accel_on: bool = True,
-                         decomposed: bool = False, device="cpu") -> str:
-    """Resolve an ``"auto"`` PSD projection backend for ``device`` — the
+                         decomposed: bool = False, device=None) -> str:
+    """Resolve an ``"auto"`` PSD projection backend for ``device`` (None:
+    ``cuda``, where the package's entry points solve by default) — the
     rule of ``cosmo_tpu.ops.conedata.resolve_eigh_backend`` with "on TPU"
     read as "on a CUDA device":
 
@@ -162,7 +163,7 @@ def resolve_eigh_backend(requested: str, buckets=None, accel_on: bool = True,
     """
     if requested != "auto":
         return requested
-    if torch.device(device).type != "cuda":
+    if torch.device("cuda" if device is None else device).type != "cuda":
         return "xla"
     if (buckets is not None and len(buckets) == 1
             and buckets[0].side <= AUTO_KERNEL_MAX_SIDE):
@@ -193,10 +194,10 @@ _NOT_PORTED_CONES = (
 def compile_cones(sets: List[C.ConvexSet], dtype=np.float64, psd_pad_to: int = 8,
                   soc_pad_pow2: bool = True, eigh_backend: str = "xla",
                   jacobi_sweeps: int = 8, accel_on: bool = True,
-                  decomposed: bool = False, device="cpu") -> ConeData:
+                  decomposed: bool = False, device=None) -> ConeData:
     """Build the batched cone representation (numpy arrays) from an ordered
-    cone list. ``device`` is where the solve will run: the ``"auto"``
-    backend resolves for it (:func:`resolve_eigh_backend`)."""
+    cone list. ``device`` is where the solve will run (None: ``cuda``): the
+    ``"auto"`` backend resolves for it (:func:`resolve_eigh_backend`)."""
     for cls, what in _NOT_PORTED_CONES:
         if any(isinstance(s, cls) for s in sets):
             raise not_ported(what, "exp/pow/custom/complex cones"

@@ -78,10 +78,12 @@ def _apply_round_vec(X, V, p, q):
     V[:, :, q] = sr * Vp + cr * Vq
 
 
-def jacobi_eigh(X, sweeps: int = 8):
+def jacobi_eigh(X, sweeps: int = 8, rounds=None):
     """Eigendecomposition of a stack of symmetric matrices [B, k, k] by
     cyclic Jacobi. Returns (w, V) with w unsorted, X = V diag(w) V' up to
-    rounding. Odd k goes to ``torch.linalg.eigh``."""
+    rounding. ``rounds``: the schedule of a sweep, k-1 pairs of (p, q)
+    index arrays whose rotation at (p, q) zeroes X[p, q]; default the
+    round-robin one. Odd k goes to ``torch.linalg.eigh``."""
     B, k, _ = X.shape
     if k % 2 != 0:
         return torch.linalg.eigh(X)
@@ -90,7 +92,7 @@ def jacobi_eigh(X, sweeps: int = 8):
     rounds = [
         (torch.as_tensor(p, dtype=torch.long, device=X.device),
          torch.as_tensor(q, dtype=torch.long, device=X.device))
-        for p, q in _round_robin_rounds(k)
+        for p, q in (rounds if rounds is not None else _round_robin_rounds(k))
     ]
     for _ in range(sweeps):
         for p, q in rounds:
@@ -105,9 +107,9 @@ def psd_reconstruct(w, V):
     return torch.einsum("bik,bk,bjk->bij", V, torch.clamp(w, min=0.0), V)
 
 
-def psd_project_jacobi(X, sweeps: int = 8):
+def psd_project_jacobi(X, sweeps: int = 8, rounds=None):
     """PSD projection via Jacobi: V max(w, 0) V'."""
-    return psd_reconstruct(*jacobi_eigh(X, sweeps))
+    return psd_reconstruct(*jacobi_eigh(X, sweeps, rounds))
 
 
 def psd_project_eigh(X):

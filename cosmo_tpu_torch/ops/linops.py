@@ -1,15 +1,17 @@
-"""Linear-operator layer: dense or block-dense-row matrices on the device.
+"""Linear-operator layer: dense, COO or block-dense-row matrices on the
+device (the port of ``cosmo_tpu.ops.linops``).
 
-Every consumer (Ruiz scaling, the dense KKT, residuals, certificates) goes
+Every consumer (Ruiz scaling, the KKT solves, residuals, certificates) goes
 through one interface over
 
 * a dense ``torch.Tensor`` [m, n];
+* :class:`Coo` — the triplets twice, sorted by row (for ``A @ x``) and by
+  column (for ``A.T @ y``); a matvec is a gather, a product and an
+  ``index_add_`` over the sorted segment ids. The decomposed problems that
+  take the block-diagonal KKT hold P and A this way;
 * :class:`Bde` — G contiguous groups of ``rb`` rows, each over at most
   ``cmax`` columns (one PSD block of a block-structured SDP per group), so
   a matvec is one small column selection plus a batched [rb, cmax] product.
-
-The row/column-sorted COO triplets of ``cosmo_tpu.ops.linops.Coo`` are not
-ported yet (ROADMAP.md, deferred "Coo + CG").
 """
 from __future__ import annotations
 
@@ -18,6 +20,54 @@ from typing import Any, Tuple
 
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Coo:
+    """COO sparse matrix with row-sorted and column-sorted copies of its
+    triplets (see ``cosmo_tpu.ops.linops.Coo``). The row-sorted order is
+    the canonical one of :func:`coo_from_scipy`, which the block KKT's
+    nnz-index maps (ops/blockkkt.py) point into."""
+
+    m: int
+    n: int
+    rows: Any = None    # int [nnz], sorted ascending
+    cols: Any = None    # int [nnz]
+    vals: Any = None    # [nnz]
+    crows: Any = None   # int [nnz] (column-sorted copy)
+    ccols: Any = None   # int [nnz], sorted ascending
+    cvals: Any = None   # [nnz]
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.m, self.n)
+
+    @property
+    def dtype(self):
+        return self.vals.dtype
+
+
+def coo_from_scipy(A, dtype=np.float64) -> Coo:
+    """A host-side (numpy) :class:`Coo` from a scipy sparse matrix; move it
+    to a device with :func:`coo_to_device`."""
+    import scipy.sparse as sp
+
+    Ac = sp.coo_matrix(A)
+    m, n = Ac.shape
+    r = np.asarray(Ac.row, dtype=np.int64)
+    c = np.asarray(Ac.col, dtype=np.int64)
+    v = np.asarray(Ac.data, dtype=dtype)
+    pr = np.lexsort((c, r))
+    pc = np.lexsort((r, c))
+    return Coo(m=m, n=n, rows=r[pr], cols=c[pr], vals=v[pr],
+               crows=r[pc], ccols=c[pc], cvals=v[pc])
+
+
+def coo_to_device(A: Coo, device, dtype: torch.dtype) -> Coo:
+    return dataclasses.replace(A, **{
+        f.name: to_device(getattr(A, f.name), device, dtype)
+        for f in dataclasses.fields(A)
+    })
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,8 +205,19 @@ def _ext0(x):
 # matvecs
 # ----------------------------------------------------------------------
 
+def _segment_sum(vals, ids, num: int):
+    return vals.new_zeros(num).index_add_(0, ids, vals)
+
+
+def _segment_amax(vals, ids, num: int):
+    """max per segment, 0 for an empty one (the values are >= 0)."""
+    return vals.new_zeros(num).scatter_reduce_(0, ids, vals, "amax")
+
+
 def matvec(A, x):
     """A @ x."""
+    if isinstance(A, Coo):
+        return _segment_sum(A.vals * x[A.cols], A.rows, A.m)
     if isinstance(A, Bde):
         if A.sel is not None:
             xg = (A.sel @ x).reshape(A.G, A.cmax)
@@ -168,6 +229,8 @@ def matvec(A, x):
 
 def rmatvec(A, y):
     """A.T @ y."""
+    if isinstance(A, Coo):
+        return _segment_sum(A.cvals * y[A.crows], A.ccols, A.n)
     if isinstance(A, Bde):
         t = torch.einsum("gcr,gr->gc", A.vals_t, y.reshape(A.G, A.rb))
         if A.sel is not None:
@@ -182,6 +245,8 @@ def rmatvec(A, y):
 
 def colmax_abs(A):
     """max_i |A_ij| per column j (0 for empty columns)."""
+    if isinstance(A, Coo):
+        return _segment_amax(A.cvals.abs(), A.ccols, A.n)
     if isinstance(A, Bde):
         t = A.vals.abs().amax(dim=1)                # [G, cmax]
         return _ext0(t.reshape(-1))[A.ell_idx].amax(dim=1)
@@ -192,6 +257,8 @@ def colmax_abs(A):
 
 def rowmax_abs(A):
     """max_j |A_ij| per row i (0 for empty rows)."""
+    if isinstance(A, Coo):
+        return _segment_amax(A.vals.abs(), A.rows, A.m)
     if isinstance(A, Bde):
         return A.vals.abs().amax(dim=2).reshape(A.m)
     if A.shape[1] == 0:
@@ -201,6 +268,12 @@ def rowmax_abs(A):
 
 def scale_rows_cols(A, ew, dw):
     """E A D with diagonal row scaling ew and column scaling dw."""
+    if isinstance(A, Coo):
+        return dataclasses.replace(
+            A,
+            vals=A.vals * ew[A.rows] * dw[A.cols],
+            cvals=A.cvals * ew[A.crows] * dw[A.ccols],
+        )
     if isinstance(A, Bde):
         ewg = ew.reshape(A.G, A.rb)
         dwg = _ext0(dw)[A.cols]
@@ -213,6 +286,9 @@ def scale_rows_cols(A, ew, dw):
 
 
 def scale_rows(A, ew):
+    if isinstance(A, Coo):
+        return dataclasses.replace(
+            A, vals=A.vals * ew[A.rows], cvals=A.cvals * ew[A.crows])
     if isinstance(A, Bde):
         ewg = ew.reshape(A.G, A.rb)
         return dataclasses.replace(
@@ -223,14 +299,39 @@ def scale_rows(A, ew):
 
 def scale_all(A, c):
     """c * A with a scalar c."""
+    if isinstance(A, Coo):
+        return dataclasses.replace(A, vals=A.vals * c, cvals=A.cvals * c)
     if isinstance(A, Bde):
         return dataclasses.replace(A, vals=A.vals * c, vals_t=A.vals_t * c)
     return A * c
 
 
 def symmetrize(P):
-    """(P + P') / 2."""
+    """(P + P') / 2; a Coo is taken as symmetric already (the symmetric
+    Ruiz scaling keeps it so)."""
+    if isinstance(P, Coo):
+        return P
     return 0.5 * (P + P.T)
+
+
+def diag_part(P):
+    """diag(P) as a vector."""
+    if isinstance(P, Coo):
+        on_diag = P.rows == P.cols
+        return _segment_sum(torch.where(on_diag, P.vals, torch.zeros_like(P.vals)),
+                            P.rows, P.m)
+    return torch.diagonal(P)
+
+
+def diag_AtRhoA(A, rho_vec):
+    """diag(A' diag(rho) A) = sum_i rho_i A_ij^2 per column j."""
+    if isinstance(A, Coo):
+        return _segment_sum(rho_vec[A.crows] * A.cvals * A.cvals, A.ccols, A.n)
+    if isinstance(A, Bde):
+        t = torch.einsum("grc,gr,grc->gc", A.vals, rho_vec.reshape(A.G, A.rb),
+                         A.vals)
+        return _ext0(t.reshape(-1))[A.ell_idx].sum(dim=1)
+    return (rho_vec[:, None] * A * A).sum(dim=0)
 
 
 def AtRhoA(A, rho_vec):
@@ -246,4 +347,7 @@ def AtRhoA(A, rho_vec):
         cj = A.cols[:, None, :].expand(C.shape)
         Mext.index_put_((ci, cj), C, accumulate=True)
         return Mext[: A.n, : A.n]
+    if isinstance(A, Coo):
+        raise TypeError("the dense KKT takes a dense or Bde A; a Coo A goes "
+                        "through the block-diagonal KKT (ops/blockkkt.py)")
     return A.T @ (rho_vec[:, None] * A)

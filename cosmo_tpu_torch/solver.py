@@ -1,5 +1,5 @@
-"""The ADMM core (the port of ``cosmo_tpu.solver.solve`` for the dense KKT
-without Anderson acceleration).
+"""The ADMM core (the port of ``cosmo_tpu.solver.solve`` with the dense or
+the block-diagonal KKT, without Anderson acceleration).
 
 Reference call stack: src/solver.jl:78-203 (optimize!), :7-65 (admm_z!/
 admm_x!/admm_w!), :242-292 (rho adaptation), :303-356 (termination).
@@ -13,6 +13,11 @@ The host waits for the device only where a decision needs a device value:
 once per termination check (status), once per rho adaptation (whether rho
 changed, which decides the refactor) and once per infeasibility check
 (status and the certificate window).
+
+With the block-diagonal KKT (``ops/blockkkt.py``) the x half of the
+operator variable lives in the block-space layout for the whole loop (the
+block-space x carry of ``cosmo_tpu.solver``): n-space x is materialized
+only at the checks and at exit.
 """
 from __future__ import annotations
 
@@ -22,13 +27,14 @@ from typing import Any
 import torch
 
 from . import results
+from .ops import blockkkt
 from .ops import infeasibility as infeas
 from .ops import kkt as kkt_ops
 from .ops import projections
 from .ops import residuals as res_ops
 from .ops import scaling as scaling_ops
 from .ops.conedata import not_ported
-from .settings import DynConfig, StaticConfig, KKT_DENSE
+from .settings import DynConfig, StaticConfig, KKT_BLOCK, KKT_DENSE
 
 RHO_LOG_LEN = 64
 
@@ -45,13 +51,18 @@ _RHO_EQ = 1
 _RHO_LOOSE = 2
 
 
-def _make_rho_vec(rho, rho_class, dyn):
-    """rho per row from the row class (reference: parameters.jl:17-49)."""
-    return torch.where(
+def _make_rho_vec(rho, rho_class, dyn, row_scale=None):
+    """rho per row from the row class (reference: parameters.jl:17-49),
+    optionally times a static per-row scale (the decomposition-overlap
+    weighting, Settings.rho_overlap_scale)."""
+    rv = torch.where(
         rho_class == _RHO_EQ,
         rho * dyn.rho_eq_over_rho_ineq,
         torch.where(rho_class == _RHO_LOOSE, dyn.rho_min, rho),
     )
+    if row_scale is not None:
+        rv = torch.clamp(rv * row_scale, dyn.rho_min, dyn.rho_max)
+    return rv
 
 
 def _classify_rows(cones, b, lb, ub, dyn):
@@ -71,10 +82,11 @@ def check_supported(static: StaticConfig):
     if static.accel_mem > 0:
         raise not_ported("Anderson acceleration (Settings.accelerator)",
                          "Anderson acceleration")
-    if not isinstance(static.kkt_solver, str) or static.kkt_solver != KKT_DENSE:
+    if not isinstance(static.kkt_solver, str) or static.kkt_solver not in (
+            KKT_DENSE, KKT_BLOCK):
         raise not_ported(f"kkt_solver={static.kkt_solver!r}",
                          "Coo + CG" if static.kkt_solver in ("cg", "minres")
-                         else "block-diagonal KKT")
+                         else "custom KKT solvers")
     if static.kkt_refine_steps > 0:
         raise not_ported("the compensated KKT refinement (kkt_refine_steps > 0; "
                          "auto in float32 with ZeroSet or l == u Box rows)",
@@ -95,7 +107,7 @@ class _Loop:
     kkt: Any
     cost: Any
     res: Any
-    dx: Any              # certificate base x (set by the first shadow step)
+    dx: Any              # certificate base x, block space (first shadow step)
     dy: Any              # certificate base mu (set by the first shadow step)
     gx: Any              # main-trajectory x at the previous infeasibility check
     gy: Any              # main-trajectory mu at the previous infeasibility check
@@ -116,10 +128,15 @@ class _Loop:
     projections: int = 0
 
 
-def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig):
+def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
+          kkt_block=None, rho_row_scale=None):
     """Full solve of ``min 1/2 x'Px + q'x s.t. Ax + s = b, s in K`` on the
-    device of ``q``. ``P`` is a dense tensor, ``A`` dense or
-    :class:`~cosmo_tpu_torch.ops.linops.Bde`, ``cones`` a device ConeData.
+    device of ``q``. ``cones`` is a device ConeData. With the dense KKT,
+    ``P`` is a dense tensor and ``A`` dense or
+    :class:`~cosmo_tpu_torch.ops.linops.Bde`; with ``kkt_solver ==
+    "blockdiag"`` both are :class:`~cosmo_tpu_torch.ops.linops.Coo` and
+    ``kkt_block`` is the device :class:`~cosmo_tpu_torch.ops.blockkkt.
+    BlockKKTMeta`. ``rho_row_scale``: an optional static per-row rho scale.
     Returns a dict of host values (numpy arrays and Python numbers)."""
     check_supported(static)
     m, n = static.m, static.n
@@ -139,39 +156,84 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig):
     x, mu, s0v = scaling_ops.scale_variables(x0, mu0, s0, sm)
     rho_class = _classify_rows(cones, b, lb, ub, dyn)
     rho = dyn.rho.clone()
-    rho_vec = _make_rho_vec(rho, rho_class, dyn)
+    rho_vec = _make_rho_vec(rho, rho_class, dyn, rho_row_scale)
     rho_log = torch.zeros(RHO_LOG_LEN, dtype=dtype, device=device)
     rho_log[0] = rho
+
+    use_block = static.kkt_solver == KKT_BLOCK
+    if use_block and kkt_block is None:
+        raise ValueError("kkt_solver='blockdiag' needs the BlockKKTMeta "
+                         "structure (pass kkt_block=blockkkt.analyze(P, A))")
+    # Block-space x carry: with the fused block KKT the x half of w stays
+    # in the concatenated component layout (a padded permutation of x whose
+    # pad slots stay exactly 0), so the per-iteration column gather and x
+    # scatter become slices; n-space x is built only at checks and at exit
+    use_bspace = use_block and blockkkt.supports_blockspace(kkt_block)
+    if use_bspace:
+        cols_map = blockkkt.blockspace_cols(kkt_block)
+        nx = blockkkt.blockspace_dim(kkt_block)
+
+        def x_to_block(xv):
+            return torch.cat([xv, xv.new_zeros(1)])[cols_map]
+
+        def x_from_block(xg):
+            out = xg.new_zeros(n + 1)
+            out[cols_map] = xg
+            return out[:n]
+    else:
+        nx = n
+
+        def x_to_block(xv):
+            return xv
+
+        def x_from_block(xg):
+            return xg
+    qx = x_to_block(q)
+
     # the explicit-inverse apply is plain-ADMM-only (kkt.dense_factor)
     use_inverse = static.accel_mem == 0
-    kkt = kkt_ops.dense_factor(P, A, dyn.sigma, rho_vec, use_inverse)
+
+    def kkt_setup(rho_vec):
+        if use_block:
+            return blockkkt.factor(kkt_block, P, A, dyn.sigma, rho_vec)
+        return kkt_ops.dense_factor(P, A, dyn.sigma, rho_vec, use_inverse)
+
+    def kkt_solve(kkt, rho_vec, r1, r2):
+        if use_bspace:
+            return blockkkt.solve_blockspace(kkt_block, kkt, rho_vec, r1, r2)
+        if use_block:
+            return blockkkt.solve(kkt_block, kkt, A, rho_vec, r1, r2)
+        return kkt_ops.dense_solve(kkt, A, rho_vec, r1, r2)
+
+    kkt = kkt_setup(rho_vec)
 
     def admm_x_w(w, s, kkt, rho_vec):
-        """admm_x! then admm_w! (solver.jl:32-65)."""
-        r1 = dyn.sigma * w[:n] - q
-        r2 = b - 2.0 * s + w[n:]
-        xt, nu = kkt_ops.dense_solve(kkt, A, rho_vec, r1, r2)
-        s_tl = 2.0 * s - w[n:] - nu / rho_vec
-        w1 = w[:n] + dyn.alpha * (xt - w[:n])
-        w2 = w[n:] + dyn.alpha * (s_tl - s)
+        """admm_x! then admm_w! (solver.jl:32-65); the x half of w lives in
+        block space when ``use_bspace`` (q rides along as ``qx``)."""
+        r1 = dyn.sigma * w[:nx] - qx
+        r2 = b - 2.0 * s + w[nx:]
+        xt, nu = kkt_solve(kkt, rho_vec, r1, r2)
+        s_tl = 2.0 * s - w[nx:] - nu / rho_vec
+        w1 = w[:nx] + dyn.alpha * (xt - w[:nx])
+        w2 = w[nx:] + dyn.alpha * (s_tl - s)
         return torch.cat([w1, w2])
 
     def recover_mu(w_prev, s, rho_vec):
         """Moreau: mu = rho (w - Pi(w)) (solver.jl:23-26)."""
-        return rho_vec * (w_prev[n:] - s)
+        return rho_vec * (w_prev[nx:] - s)
 
     def project(c: _Loop, v):
         c.projections += 1
         return projections.project(v, cones)
 
     # initial half-step so iterates agree with standard ADMM (solver.jl:125-138)
-    w0 = admm_x_w(torch.cat([x, s0v + mu / rho_vec]), s0v, kkt, rho_vec)
+    w0 = admm_x_w(torch.cat([x_to_block(x), s0v + mu / rho_vec]), s0v, kkt, rho_vec)
     big = torch.full((), float("inf"), dtype=dtype, device=device)
     zero = torch.zeros((), dtype=dtype, device=device)
     c = _Loop(
         w=w0, w_prev=w0, s=s0v, rho=rho, rho_vec=rho_vec, kkt=kkt, cost=big,
         res=res_ops.ResInfo(big, big, zero, zero),
-        dx=torch.zeros(n, dtype=dtype, device=device),
+        dx=torch.zeros(nx, dtype=dtype, device=device),
         dy=torch.zeros(m, dtype=dtype, device=device),
         gx=torch.zeros(n, dtype=dtype, device=device),
         gy=torch.zeros(m, dtype=dtype, device=device),
@@ -187,7 +249,7 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig):
     def adapt_rho(c: _Loop):
         """reference: solver.jl:242-282, parameters.jl:53-92"""
         mu_k = recover_mu(c.w_prev, c.s, c.rho_vec)
-        x_k = c.w_prev[:n]
+        x_k = x_from_block(c.w_prev[:nx])
         rp, rd = res_ops.calculate_residuals(P, A, q, b, x_k, c.s, mu_k, sm,
                                              ignore_scaling=True)
         mp, md = res_ops.max_res_component_norm(P, A, q, b, x_k, c.s, mu_k, sm,
@@ -200,10 +262,10 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig):
             new_rho < c.rho / dyn.adaptive_rho_tolerance)
         if not bool(changed):                       # host sync: refactor?
             return
-        c.rho_vec = _make_rho_vec(new_rho, rho_class, dyn)
-        c.kkt = kkt_ops.dense_factor(P, A, dyn.sigma, c.rho_vec, use_inverse)
+        c.rho_vec = _make_rho_vec(new_rho, rho_class, dyn, rho_row_scale)
+        c.kkt = kkt_setup(c.rho_vec)
         # re-express w in the new scaling (solver.jl:278)
-        c.w = torch.cat([c.w[:n], mu_k / c.rho_vec + c.s])
+        c.w = torch.cat([c.w[:nx], mu_k / c.rho_vec + c.s])
         c.n_rho_adapt += 1
         c.rho_log[min(c.n_rho_adapt, RHO_LOG_LEN - 1)] = new_rho
         c.rho = new_rho
@@ -211,7 +273,7 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig):
     def check_termination(c: _Loop):
         """reference: solver.jl:303-321"""
         mu_k = recover_mu(c.w_prev, c.s, c.rho_vec)
-        x_k = c.w_prev[:n]
+        x_k = x_from_block(c.w_prev[:nx])
         info = res_ops.result_info(P, A, q, b, x_k, c.s, mu_k, sm)
         cost = res_ops.calculate_cost(P, q, x_k, sm.cinv)
         conv = res_ops.has_converged(info, dyn.eps_abs, dyn.eps_rel)
@@ -239,10 +301,10 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig):
     def shadow_step(c: _Loop):
         """One plain ADMM step of the certificate shadow trajectory; the
         first step after arming captures the delta base."""
-        s_sh = project(c, c.w_sh[n:])
-        mu_sh = c.rho_vec * (c.w_sh[n:] - s_sh)
+        s_sh = project(c, c.w_sh[nx:])
+        mu_sh = c.rho_vec * (c.w_sh[nx:] - s_sh)
         if c.dy_age == 0:
-            c.dy, c.dx = mu_sh, c.w_sh[:n]
+            c.dy, c.dx = mu_sh, c.w_sh[:nx]
         c.w_sh = admm_x_w(c.w_sh, s_sh, c.kkt, c.rho_vec)
         c.mu_sh = mu_sh
         c.dy_age += 1
@@ -252,14 +314,14 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig):
         ones, with the main trajectory's check-to-check deltas, gate the
         window escalation (cosmo_tpu.solver.check_infeasibility)."""
         dy = c.dy - c.mu_sh
-        dx = c.w_sh[:n] - c.dx
+        dx = c.w_sh[:nx] - c.dx            # block space (carry layout)
         eps_p, eps_d = dyn.eps_prim_inf, dyn.eps_dual_inf
         prim_inf, prim_loose = infeas.is_primal_infeasible_multi(
             dy, A, b, cones, sm, (eps_p, 100.0 * eps_p))
         dual_inf, dual_loose = infeas.is_dual_infeasible_multi(
-            dx, P, A, q, cones, sm, (eps_d, 100.0 * eps_d))
+            x_from_block(dx), P, A, q, cones, sm, (eps_d, 100.0 * eps_d))
         mu_now = recover_mu(c.w_prev, c.s, c.rho_vec)
-        x_now = c.w_prev[:n]
+        x_now = x_from_block(c.w_prev[:nx])
         score = c.res.r_prim / (c.res.max_norm_prim + 1e-10) + c.res.r_dual / (
             c.res.max_norm_dual + 1e-10)
         stag_score = score >= 0.95 * c.chk_best
@@ -299,7 +361,7 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig):
             shadow_step(c)
 
         c.w_prev = c.w
-        c.s = project(c, c.w[n:])
+        c.s = project(c, c.w[nx:])
 
         if static.adaptive_rho:
             c.rho_due = c.rho_due or (
@@ -327,7 +389,7 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig):
     # post-processing (solver.jl:167-201)
     # ------------------------------------------------------------------
     mu_final = recover_mu(c.w_prev, c.s, c.rho_vec)
-    x_final = c.w_prev[:n]
+    x_final = x_from_block(c.w_prev[:nx])
     if c.status == results.UNDETERMINED:
         c.res = res_ops.result_info(P, A, q, b, x_final, c.s, mu_final, sm)
         c.status = results.MAX_ITER_REACHED

@@ -147,13 +147,26 @@ def test_block_sdp_and_svec_identical():
     assert jprob.tri_dim(7) == tprob.tri_dim(7) == 28
 
 
+# modules of the second slice that the subprocess check must have imported
+SLICE2_MODULES = (
+    "cosmo_tpu_torch.chordal.graph", "cosmo_tpu_torch.chordal.trees",
+    "cosmo_tpu_torch.chordal.merging", "cosmo_tpu_torch.chordal.transform",
+    "cosmo_tpu_torch.chordal.decompose", "cosmo_tpu_torch.native",
+    "cosmo_tpu_torch.ops.blockkkt", "cosmo_tpu_torch.ops.cuda_build",
+    "cosmo_tpu_torch.ops.jacobi_proj_rr",
+)
+
+
 def test_import_pulls_in_neither_jax_nor_cosmo_tpu():
+    """Every module of the package, imported in a fresh interpreter, pulls
+    in neither jax nor cosmo_tpu."""
     code = ("import importlib, pkgutil, sys, cosmo_tpu_torch; "
             "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
             "cosmo_tpu_torch.__path__, 'cosmo_tpu_torch.')]; "
+            f"missing = [m for m in {SLICE2_MODULES!r} if m not in sys.modules]; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'cosmo_tpu' or m.startswith('cosmo_tpu.')]; "
-            "print(bad); sys.exit(1 if bad else 0)")
+            "print(bad, missing); sys.exit(1 if bad or missing else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -1,7 +1,7 @@
 """cosmo_tpu_torch.ops.linops against cosmo_tpu.ops.linops in float64.
 
-The block-dense-row constructor is a host-side numpy copy, so its fields must
-be identical. The matvecs and reductions run different libraries (XLA vs
+The block-dense-row and COO constructors are host-side numpy copies, so
+their fields must be identical. The matvecs and reductions run different libraries (XLA vs
 PyTorch CPU kernels) over the same f64 data; their sums are short (at most
 n terms of O(1) values), so they agree to 1e-12."""
 import dataclasses
@@ -52,13 +52,28 @@ def test_bde_from_scipy_rejects_like_reference():
     assert tl.bde_from_scipy(A, rb, max_cmax=2) is None
 
 
+def test_coo_from_scipy_fields_identical():
+    A, _ = _block_matrix()
+    jc, tc = jl.coo_from_scipy(A, np.float64), tl.coo_from_scipy(A, np.float64)
+    for f in dataclasses.fields(tc):
+        jv, tv = getattr(jc, f.name), getattr(tc, f.name)
+        if isinstance(tv, np.ndarray):
+            assert np.array_equal(np.asarray(jv), tv), f.name
+        else:
+            assert jv == tv, f.name
+    assert np.all(np.diff(tc.rows) >= 0) and np.all(np.diff(tc.ccols) >= 0)
+
+
 def _pair(kind, with_sel=True):
     """The same operator in both packages: the JAX one and the port's,
-    the port's Bde carried across with convert.bde_from_dict."""
+    the port's Bde and Coo carried across with convert."""
     A, rb = _block_matrix()
     if kind == "dense":
         Ad = A.toarray()
         return jnp.asarray(Ad), torch.as_tensor(Ad)
+    if kind == "coo":
+        jc = jl.coo_from_scipy(A, np.float64)
+        return jc, convert.coo_from_dict(as_numpy_dict(jc), "cpu", F64)
     jb = jl.bde_from_scipy(A, rb, sel_budget_bytes=(64 << 20) if with_sel else 0)
     jb = jb.__class__(**{f.name: (jnp.asarray(getattr(jb, f.name))
                                   if isinstance(getattr(jb, f.name), np.ndarray)
@@ -67,7 +82,7 @@ def _pair(kind, with_sel=True):
     return jb, convert.bde_from_dict(as_numpy_dict(jb), "cpu", F64)
 
 
-CASES = [("dense", True), ("bde", True), ("bde", False)]
+CASES = [("dense", True), ("bde", True), ("bde", False), ("coo", True)]
 
 
 @pytest.mark.parametrize("kind,with_sel", CASES)
@@ -99,7 +114,13 @@ def test_reductions_and_scalings_match(kind, with_sel):
 
     close(jl.colmax_abs(jA), tl.colmax_abs(tA))
     close(jl.rowmax_abs(jA), tl.rowmax_abs(tA))
-    close(jl.AtRhoA(jA, jnp.asarray(rho)), tl.AtRhoA(tA, torch.as_tensor(rho)))
+    close(jl.diag_AtRhoA(jA, jnp.asarray(rho)), tl.diag_AtRhoA(tA, torch.as_tensor(rho)))
+    if kind == "coo":
+        # a Coo A goes through the block-diagonal KKT, never the dense one
+        with pytest.raises(TypeError):
+            tl.AtRhoA(tA, torch.as_tensor(rho))
+    else:
+        close(jl.AtRhoA(jA, jnp.asarray(rho)), tl.AtRhoA(tA, torch.as_tensor(rho)))
     js = jl.scale_rows_cols(jA, jnp.asarray(ew), jnp.asarray(dw))
     ts = tl.scale_rows_cols(tA, torch.as_tensor(ew), torch.as_tensor(dw))
     x = rng.standard_normal(n)
@@ -108,3 +129,24 @@ def test_reductions_and_scalings_match(kind, with_sel):
     ts = tl.scale_all(tl.scale_rows(tA, torch.as_tensor(ew)), 0.3)
     y = rng.standard_normal(m)
     close(jl.rmatvec(js, jnp.asarray(y)), tl.rmatvec(ts, torch.as_tensor(y)))
+
+
+@pytest.mark.parametrize("kind", ["dense", "coo"])
+def test_square_operator_helpers_match(kind):
+    """diag_part and symmetrize on a symmetric P with empty rows and
+    columns (a Coo is taken as symmetric already, as in the reference)."""
+    rng = np.random.default_rng(4)
+    Pd = np.zeros((12, 12))
+    Pd[2:9, 2:9] = rng.standard_normal((7, 7))
+    Pd = Pd + Pd.T
+    if kind == "dense":
+        jP, tP = jnp.asarray(Pd), torch.as_tensor(Pd)
+    else:
+        jP = jl.coo_from_scipy(sp.csr_matrix(Pd), np.float64)
+        tP = convert.coo_from_dict(as_numpy_dict(jP), "cpu", F64)
+    assert np.abs(np.asarray(jl.diag_part(jP)) - tl.diag_part(tP).numpy()).max() <= TOL
+    assert np.array_equal(tl.diag_part(tP).numpy(), np.diag(Pd))
+    x = rng.standard_normal(12)
+    assert np.abs(np.asarray(jl.matvec(jl.symmetrize(jP), jnp.asarray(x)))
+                  - tl.matvec(tl.symmetrize(tP), torch.as_tensor(x)).numpy()).max() <= TOL
+    assert np.array_equal(tl.colmax_abs(tP).numpy(), np.abs(Pd).max(axis=0))

@@ -138,7 +138,7 @@ def test_auto_backend_rule():
     otherwise (cosmo_tpu.ops.conedata.resolve_eigh_backend)."""
     one = [pt.PsdConeTriangle(136)] * 3
     kw = dict(dtype=np.float64, eigh_backend="auto")
-    assert tcd.compile_cones(one, accel_on=False, **kw).eigh_backend == "xla"
+    assert tcd.compile_cones(one, accel_on=False, device="cpu", **kw).eigh_backend == "xla"
     assert tcd.compile_cones(one, accel_on=False, device="cuda", **kw).eigh_backend == "pallas"
     assert tcd.compile_cones(one, accel_on=True, device="cuda", **kw).eigh_backend == "polar"
     big = [pt.PsdConeTriangle(300)]
@@ -148,6 +148,18 @@ def test_auto_backend_rule():
     tc = tcd.compile_cones(many, accel_on=False, device="cuda", **kw)
     assert tc.eigh_backend == "polar"
     assert [b.backend for b in tc.psd_buckets] == ["pallas", ""]
+
+
+def test_compile_cones_without_device_resolves_for_cuda():
+    """With no device named, "auto" resolves by the CUDA rule: the
+    package's entry points solve on the card unless asked for the CPU
+    (resolution is host logic, so this runs here)."""
+    one = [pt.PsdConeTriangle(136)] * 3
+    tc = tcd.compile_cones(one, dtype=np.float64, eigh_backend="auto", accel_on=False)
+    assert tc.eigh_backend == "pallas"
+    assert tcd.resolve_eigh_backend("auto", tc.psd_buckets, accel_on=False) == "pallas"
+    assert tcd.resolve_eigh_backend("auto", tc.psd_buckets, accel_on=False,
+                                    device="cpu") == "xla"
 
 
 @pytest.mark.parametrize("sets,backend", [

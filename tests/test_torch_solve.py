@@ -163,11 +163,10 @@ def _with(**kw):
 
 @pytest.mark.parametrize("make_settings,build", [
     (lambda: pt.Settings(decompose=False), _qp),                 # Anderson
-    (_with(decompose=True), _min_eig),                           # chordal
     (_with(kkt_solver="cg"), _qp),
     (_with(kkt_solver=pt.CustomKKTSolver(setup=len, solve=len)), _qp),
-    (_with(), _lp),                                              # sparse, no Bde
-    (_with(), _block_sdp),                                       # block KKT
+    # sparse, coupled beyond kkt_block_max and no Bde layout: Coo + CG
+    (_with(kkt_block_max=1), _lp),
     (_with(dtype=np.float32), _min_eig),                         # auto refine
     (_with(kkt_refine_steps=1), _qp),
     (_with(mixed_precision=True), _qp),
@@ -175,9 +174,8 @@ def _with(**kw):
     (_with(eigh_backend="jacobi_mm"), _min_eig),
     (_with(time_limit=5.0), _qp),
     (_with(adaptive_rho_interval=0), _qp),
-], ids=["anderson", "decompose", "cg", "custom_kkt", "coo", "blockkkt",
-        "auto_refine", "refine", "mixed_precision", "amortized", "jacobi_mm",
-        "time_limit", "auto_rho_interval"])
+], ids=["anderson", "cg", "custom_kkt", "coo", "auto_refine", "refine",
+        "mixed_precision", "amortized", "jacobi_mm", "time_limit", "auto_rho_interval"])
 def test_unported_options_raise(make_settings, build):
     model = build(pt, pt.Model(make_settings(), device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -7,14 +7,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions;
-2. build: compiles ``cosmo_tpu_torch/csrc/jacobi_proj.cu`` and
-   ``jacobi_proj_rr.cu`` with nvcc for sm_90a, one nvcc per source, all
-   started together (each ptxas report is printed);
-3. kernel: holds the serial and the round-parallel Jacobi projection
+2. build: compiles the Jacobi kernels' library from
+   ``cosmo_tpu_torch/csrc/jacobi_proj.cu``, ``jacobi_proj_rr.cu`` and
+   ``jacobi_smem.cu`` with nvcc for sm_90a, one nvcc per source, all
+   started together; prints the ptxas report and fails if any register
+   body instantiation (``jacobi_proj_regs``) has a stack frame or spills;
+3. kernel: holds the round-robin and the slot-rotation Jacobi projection
    kernels against their plain PyTorch versions on the card (float32 and
-   float64, k in {8, 16, 32, 48}, B in {1, 512, 2498, 8540}) and times
-   kernel, plain version (not at B = 8540) and the ``torch.linalg.eigh``
-   yardstick with CUDA events;
+   float64, k in {4, 6, ..., 16, 24, 32, 48}, B in {1, 512, 2498, 8540})
+   and times kernel, ``torch.linalg.eigh`` yardstick and, at k in {8, 16,
+   32, 48} and B <= 2498, the plain version with CUDA events;
 4. slice: solves ``problems.block_sdp(512, 16, 512, seed=0)`` with CSR A
    through ``Model.optimize`` on the card with plain ADMM, in float64 and
    float32 (a first solve, then a second on the same model), against the
@@ -22,8 +24,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    through the kernel; then the four known answers in float64;
 5. decomposed: solves ``problems.banded_sdp(10000, 8, seed=0, sparse=True)``
    through chordal decomposition and the block-diagonal KKT in float64,
-   once with the serial kernel and once with ``COSMO_TPU_PALLAS_RR=1``
-   (each a first solve, then a second on the same model), against the
+   once with the default (round-robin) kernel and once with the
+   slot-rotation kernel of ``COSMO_TPU_PALLAS_RR=1`` (each a first
+   solve, then a second on the same model), against the
    known objective, and checks that every projection of each solve went
    through the kernel that run selects and none through the other.
 
@@ -35,11 +38,10 @@ prints no result. With ``--out DIR`` the details also go to
 import argparse
 import json
 import os
-import statistics
+import re
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -75,21 +77,49 @@ def phase_environment():
     return smi
 
 
+# the register body's instantiations: even k in 4..16, f32/f64, two schedules
+REGISTER_BODIES = 2 * 7 * 2
+
+
+def ptxas_frames(report):
+    """{kernel symbol: (stack frame, spill stores, spill loads) bytes, then
+    registers} of a ``-Xptxas -v`` report."""
+    frames, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            frames[name] = tuple(map(int, m.groups()))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in frames:
+            frames[name] += (int(m.group(1)),)
+            name = None
+    return frames
+
+
 def phase_build():
-    """Both kernel sources, one nvcc each, started together."""
-    from cosmo_tpu_torch.ops import jacobi_proj as J
-    from cosmo_tpu_torch.ops import jacobi_proj_rr as R
+    """The kernels' library, one nvcc per source, started together. The
+    register body keeps X and V in registers: an instantiation with a stack
+    frame or a spill would put them in local memory, so it fails the
+    build."""
+    from cosmo_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda mod: mod.build(), (J, R)))
+    so = cuda_build.build_jacobi()
     seconds = time.perf_counter() - t0
-    for so in libs:
-        log(f"[build] {so.name}")
-        report = so.with_suffix(".log")
-        if report.is_file():
-            log(report.read_text().strip())
-    log(f"[build] both in {seconds:.2f} s")
+    log(f"[build] {so.name}")
+    report = so.with_suffix(".log").read_text()
+    log(report.strip())
+    regs = {n: f for n, f in ptxas_frames(report).items() if "jacobi_proj_regs" in n}
+    bad = {n: f for n, f in regs.items() if any(f[:3])}
+    log(f"[build] {len(regs)} register-body instantiations, {len(bad)} with a "
+        f"stack frame or spills; registers {sorted(f[3] for f in regs.values())}")
+    if len(regs) != REGISTER_BODIES or bad:
+        raise AssertionError(f"{so.name}: register bodies {regs}")
+    log(f"[build] in {seconds:.2f} s")
     return seconds
 
 
@@ -98,23 +128,6 @@ def _stack(B, k, dtype, device, seed):
 
     G = np.random.default_rng(seed).standard_normal((B, k, k))
     return torch.as_tensor((G + G.swapaxes(1, 2)) / 2, dtype=dtype, device=device)
-
-
-def time_ms(fn, reps):
-    """Median of ``reps`` CUDA-event timings of ``fn()`` after one warm-up."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def jacobi_bound_ms(B, k, dtype_name, sweeps=SWEEPS):
@@ -140,13 +153,17 @@ def _kernels():
             "jacobi_proj_rr": (R.jacobi_proj_rr_cuda, R.psd_project_jacobi_rr_plain)}
 
 
-def phase_kernel(device, ks=(8, 16, 32, 48), Bs=(1, 512, 2498, 8540),
-                 dtypes=("float32", "float64"), reps=20, plain_max_B=2498):
+def phase_kernel(device, ks=(4, 6, 8, 10, 12, 14, 16, 24, 32, 48),
+                 Bs=(1, 512, 2498, 8540), dtypes=("float32", "float64"), reps=20,
+                 plain_ks=(8, 16, 32, 48), plain_max_B=2498):
     """Each kernel vs its plain version at every shape; timings at each
-    shape (the plain version's only up to ``plain_max_B``; the eigh
-    yardstick once a shape, shared by both kernels, which also share the
-    bound: they do the same rotations)."""
+    shape (the plain version's only at ``plain_ks`` up to ``plain_max_B``;
+    the eigh yardstick once a shape, shared by both kernels, which also
+    share the bound: they do the same rotations). ``ms``, ``plain_ms`` and
+    ``library_ms`` are ``launch_ms``; ``device_ms`` is the kernel's time
+    without the host's launch cost."""
     import torch
+    from cosmo_tpu_torch.kernel_timing import device_ms, launch_ms
     from cosmo_tpu_torch.ops import eigh as E
 
     rows = []
@@ -156,7 +173,7 @@ def phase_kernel(device, ks=(8, 16, 32, 48), Bs=(1, 512, 2498, 8540),
             for B in Bs:
                 X = _stack(B, k, dtype, device, seed=1000 * k + B)
                 big = B * k * k > 512 * 16 * 16 * 8
-                library_ms = time_ms(lambda: E.psd_project_eigh(X), 3 if big else reps)
+                library_ms = launch_ms(lambda: E.psd_project_eigh(X), 3 if big else reps)
                 bound_ms, bound_by = jacobi_bound_ms(B, k, dtype_name)
                 for name, (launch, plain) in _kernels().items():
                     got = launch(X, SWEEPS)
@@ -168,9 +185,10 @@ def phase_kernel(device, ks=(8, 16, 32, 48), Bs=(1, 512, 2498, 8540),
                     row = dict(
                         kernel=name, dtype=dtype_name, k=k, B=B, max_abs_err=err,
                         max_abs_x=scale, tol_rel=TOL[dtype_name], ok=ok,
-                        ms=time_ms(lambda: launch(X, SWEEPS), reps),
-                        plain_ms=(time_ms(lambda: plain(X, SWEEPS), 2 if big else 5)
-                                  if B <= plain_max_B else None),
+                        ms=launch_ms(lambda: launch(X, SWEEPS), reps),
+                        device_ms=device_ms(lambda: launch(X, SWEEPS), reps),
+                        plain_ms=(launch_ms(lambda: plain(X, SWEEPS), 2 if big else 5)
+                                  if k in plain_ks and B <= plain_max_B else None),
                         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                     )
                     rows.append(row)
@@ -178,8 +196,9 @@ def phase_kernel(device, ks=(8, 16, 32, 48), Bs=(1, 512, 2498, 8540),
                                else f"{row['plain_ms']:.3f}")
                     log(f"[kernel] {name} {dtype_name} k={k:2d} B={B:5d} err={err:.3e} "
                         f"(tol {TOL[dtype_name]:.0e}*{scale:.2f}) ms={row['ms']:.4f} "
-                        f"plain={plain_s} eigh={library_ms:.3f} "
-                        f"bound={bound_ms:.5f} ({bound_by}) {'ok' if ok else 'FAIL'}")
+                        f"device={row['device_ms']:.4f} plain={plain_s} "
+                        f"eigh={library_ms:.3f} bound={bound_ms:.5f} ({bound_by}) "
+                        f"{'ok' if ok else 'FAIL'}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"a kernel disagrees with its plain version: {bad}")
@@ -246,7 +265,7 @@ def phase_slice(device, smi):
 
 def phase_decomposed(device, smi):
     """The decomposed banded SDP through the block-diagonal KKT in float64:
-    one run with the default (serial) kernel, one with COSMO_TPU_PALLAS_RR
+    one run with the default (round-robin) kernel, one with COSMO_TPU_PALLAS_RR
     set for that run only; each solves cold (a new model: decomposition,
     analysis, copies) and then warm (the same model: every cache hits)."""
     import cosmo_tpu_torch as pt

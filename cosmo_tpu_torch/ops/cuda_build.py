@@ -1,27 +1,36 @@
 """Build and load the hand-written CUDA kernels of this package.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C interface. It is
-compiled for sm_90a with ``nvcc`` at first use into ``cosmo_tpu_torch/_build/``
-(gitignored) and loaded with ctypes; nothing is built when a module is
-imported. The library's name carries a hash of its source and flags, so an
-edited source never loads a stale build.
+The Jacobi kernels are ``csrc/*.cu`` files with a plain C interface, linked
+into one library. It is compiled for sm_90a with ``nvcc`` at first use into
+``cosmo_tpu_torch/_build/`` (gitignored), one ``nvcc`` per source, all
+started together, then linked, and loaded with ctypes; nothing is built
+when a module is imported. The library's name carries a hash of its
+sources, the headers they include from ``csrc/`` and the flags, so an
+edited source or header never loads a stale build.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+from functools import lru_cache
 from pathlib import Path
+from typing import Sequence
 
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the Jacobi kernels' library: the round-robin and the slot-rotation
+# schedules' C entries, and the shared-memory body both use
+JACOBI_SOURCES = ("jacobi_proj.cu", "jacobi_proj_rr.cu", "jacobi_smem.cu")
+JACOBI_ENTRIES = ("jacobi_proj", "jacobi_proj_rr")
 
 # the side limits both Jacobi kernels take (pallas_eigh.py:257-266)
 KERNEL_MIN_SIDE = 4
@@ -44,47 +53,91 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(source: Path) -> Path:
-    """Where the library built from ``source`` lives."""
-    digest = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:12]}.so"
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
-def build(source: Path) -> Path:
-    """Compile ``source`` for sm_90a unless it is already built. Raises if
-    nvcc fails. The compiler's ``-Xptxas -v`` report (registers, shared
-    memory, spills) is kept beside the library with the suffix ``.log``."""
-    so = library_path(source)
+def _sources(source: Path) -> list[Path]:
+    """``source`` and every file it includes with ``#include "..."`` from
+    its own directory, recursively, each once."""
+    seen, todo = [], [source]
+    while todo:
+        path = todo.pop(0)
+        if path in seen or not path.is_file():
+            continue
+        seen.append(path)
+        todo.extend(path.parent / m.decode() for m in _INCLUDE.findall(path.read_bytes()))
+    return seen
+
+
+def library_path(sources: Sequence[Path], name: str) -> Path:
+    """Where the library ``name`` built from ``sources`` lives: its name
+    carries a hash of the sources, of the headers they include and of the
+    flags."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for source in sources:
+        for path in _sources(source):
+            digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
+
+
+def build(sources: Sequence[Path], name: str) -> Path:
+    """Compile ``sources`` for sm_90a into the one library ``name`` unless
+    it is built: one ``nvcc -c`` per source, all started together, then
+    one link. Raises if nvcc fails. The compiler's ``-Xptxas -v`` reports
+    (registers, shared memory, spills) are kept beside the library with
+    the suffix ``.log``."""
+    so = library_path(sources, name)
     if so.is_file():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"building {source.name} failed ({' '.join(cmd)}):\n{proc.stderr}")
-    os.replace(tmp, so)
+    tag = os.getpid()
+    objs = [so.with_name(f"{so.stem}.{src.stem}.{tag}.o") for src in sources]
+    try:
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for src, obj in zip(sources, objs)]
+        reports = [proc.communicate()[0] for proc in procs]
+        so.with_suffix(".log").write_text("".join(reports))
+        for src, proc, report in zip(sources, procs, reports):
+            if proc.returncode != 0:
+                raise RuntimeError(f"building {src.name} failed:\n{report}")
+        tmp = so.with_suffix(f".{tag}.tmp")
+        link = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking {so.name} failed:\n{link.stdout}{link.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return so
 
 
-def load_jacobi(source: Path, prefix: str) -> ctypes.CDLL:
-    """Build and load a Jacobi projection kernel whose C entries are
-    ``<prefix>_f32`` and ``<prefix>_f64``, both
-    ``int f(const T* x, T* out, const uint8_t* pairs, int B, int k,
-    int sweeps, void* stream)`` returning ``cudaGetLastError()``."""
-    lib = ctypes.CDLL(str(build(source)))
-    for fn in (getattr(lib, f"{prefix}_f32"), getattr(lib, f"{prefix}_f64")):
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+def build_jacobi() -> Path:
+    """Compile the Jacobi kernels' library unless it is built."""
+    return build([CSRC / name for name in JACOBI_SOURCES], "jacobi")
+
+
+@lru_cache(maxsize=None)
+def jacobi_library() -> ctypes.CDLL:
+    """Build and load the Jacobi kernels' library. Its C entries
+    ``<prefix>_f32`` and ``<prefix>_f64``, for each prefix of
+    :data:`JACOBI_ENTRIES`, are ``int f(const T* x, T* out, const uint8_t*
+    pairs, int B, int k, int sweeps, void* stream)`` returning
+    ``cudaGetLastError()``."""
+    lib = ctypes.CDLL(str(build_jacobi()))
+    for prefix in JACOBI_ENTRIES:
+        for fn in (getattr(lib, f"{prefix}_f32"), getattr(lib, f"{prefix}_f64")):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib
 
 
 def launch_jacobi(lib: ctypes.CDLL, prefix: str, X: torch.Tensor,
                   pairs: torch.Tensor, sweeps: int) -> torch.Tensor:
-    """Launch a kernel of :func:`load_jacobi` on ``X`` [B, k, k] (a
+    """Launch a kernel of :func:`jacobi_library` on ``X`` [B, k, k] (a
     contiguous float32/float64 CUDA tensor, ``kernel_takes(k)``) on the
     current stream; ``pairs`` is its uint8 pair table on the same device.
     Raises on any other input and when the launch reports an error."""

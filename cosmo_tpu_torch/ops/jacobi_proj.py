@@ -1,25 +1,28 @@
-"""Batched Jacobi PSD projection: the serial hand-written CUDA kernel, its
-plain PyTorch version, and the wrapper that picks a kernel.
+"""Batched Jacobi PSD projection: the round-robin hand-written CUDA kernel,
+its plain PyTorch version, and the wrapper that picks a kernel.
 
 The kernel (``csrc/jacobi_proj.cu``) replaces the TPU kernel
-``cosmo_tpu/ops/pallas_eigh.py::_proj_kernel``: the serial round-robin
-Jacobi schedule on each k x k matrix of a [B, k, k] stack, followed by the
-fused reconstruction V max(diag X, 0) V'. The source note there says what
-bounds it on an H100 and what the design does about it.
+``cosmo_tpu/ops/pallas_eigh.py::_proj_kernel``: the round-robin Jacobi
+schedule on each k x k matrix of a [B, k, k] stack, each round's k/2
+disjoint rotations at once, followed by the fused reconstruction
+V max(diag X, 0) V'. It shares its design (``csrc/jacobi_rounds.cuh``) with
+the slot-rotation kernel of :mod:`.jacobi_proj_rr`; the source notes say
+what bounds them on an H100 and what the design does about it.
 
 * :func:`psd_project_pallas` — the wrapper (named after the function it
   replaces), with the reference's switches read as ``pallas_eigh.py`` reads
   them: ``COSMO_TPU_DISABLE_PALLAS`` sends every side to
-  ``torch.linalg.eigh``; ``COSMO_TPU_PALLAS_RR`` selects the round-parallel
-  kernel (:mod:`.jacobi_proj_rr`); otherwise the serial kernel runs. A
+  ``torch.linalg.eigh``; ``COSMO_TPU_PALLAS_RR`` selects the slot-rotation
+  kernel (:mod:`.jacobi_proj_rr`); otherwise the round-robin kernel runs. A
   tensor on a CUDA device goes to the kernel, built from the repository's
-  source with ``nvcc`` at first use; a tensor on the CPU goes to the
-  kernel's plain version. The serial kernel counts its launches in
-  ``psd_project_pallas.launches``, the round-parallel one in
+  sources with ``nvcc`` at first use (one library for both kernels,
+  ``cuda_build.jacobi_library``); a tensor on the CPU goes to the
+  kernel's plain version. The round-robin kernel counts its launches in
+  ``psd_project_pallas.launches``, the slot-rotation one in
   ``jacobi_proj_rr.psd_project_rr.launches``.
-* :func:`psd_project_jacobi_plain` — the serial kernel's algorithm in
-  PyTorch, applying each round's k/2 disjoint rotations at once (the angles
-  are the serial schedule's; only the rounding order differs). The CPU
+* :func:`psd_project_jacobi_plain` — the kernel's algorithm in PyTorch,
+  applying each round's k/2 disjoint rotations at once (the rotations of
+  the TPU kernel's pair-by-pair order; only the rounding differs). The CPU
   tests hold it to ``cosmo_tpu.ops.eigh.psd_project_jacobi`` and
   ``chip_smoke.py`` holds the kernel to it on the card.
 
@@ -40,22 +43,12 @@ from . import eigh as eigh_mod
 from . import jacobi_proj_rr
 from .cuda_build import kernel_takes
 
-SOURCE = cuda_build.CSRC / "jacobi_proj.cu"
-
-
-def build():
-    """Compile ``csrc/jacobi_proj.cu`` unless it is built (cuda_build.build)."""
-    return cuda_build.build(SOURCE)
-
-
-@lru_cache(maxsize=None)
-def _library():
-    return cuda_build.load_jacobi(SOURCE, "jacobi_proj")
-
 
 def pair_schedule(k: int) -> np.ndarray:
     """The round-robin pair schedule flattened to [p0, q0, p1, q1, ...]
-    (``cosmo_tpu/ops/pallas_eigh.py::_pair_schedule``), as uint8."""
+    (``cosmo_tpu/ops/pallas_eigh.py::_pair_schedule``), as uint8: the
+    kernel's shared-memory body (k > 16) reads it; its register body
+    computes the same rounds at compile time."""
     flat = []
     for p_arr, q_arr in eigh_mod._round_robin_rounds(k):
         for p, q in zip(p_arr, q_arr):
@@ -80,7 +73,7 @@ def jacobi_proj_cuda(X: torch.Tensor, sweeps: int) -> torch.Tensor:
     CUDA tensor, kernel_takes(k)) on the current stream. Does not count."""
     if X.device.type != "cuda":
         raise ValueError(f"jacobi_proj_cuda needs a CUDA tensor, got {X.device}")
-    return cuda_build.launch_jacobi(_library(), "jacobi_proj", X,
+    return cuda_build.launch_jacobi(cuda_build.jacobi_library(), "jacobi_proj", X,
                                     _schedule_on(X.shape[-1], X.device), sweeps)
 
 

@@ -1,16 +1,19 @@
-"""Round-parallel Jacobi PSD projection: the hand-written CUDA kernel, its
+"""Slot-rotation Jacobi PSD projection: the hand-written CUDA kernel, its
 plain PyTorch version and its pair table.
 
 The kernel (``csrc/jacobi_proj_rr.cu``) replaces the TPU kernel
 ``cosmo_tpu/ops/pallas_eigh.py::_proj_kernel_rr``. That kernel applies
 each round's k/2 disjoint rotations at once at the slot pairs (2t, 2t+1)
 and moves the data between rounds by the circle-method slot rotation
-(``_slot_rotate``). Here the data never moves: :func:`pair_table` follows
-the slot rotation on the host and records, for every round, the original
-indices that sit in each slot pair. The rotations of a round have disjoint
-support, so applying them at those indices is exact, and the slot rotation
-has period k - 1, so the layout is the identity again at each sweep's end,
-where the symmetrization and the reconstruction see it.
+(``_slot_rotate``). :func:`pair_table` follows the slot rotation on the
+host and records, for every round, the original indices that sit in each
+slot pair; the plain version and the kernel's shared-memory body (k > 16)
+apply the rotations at those indices, which is exact because a round's
+rotations have disjoint support. The kernel's register body (k <= 16)
+moves the rows by the same rotation and computes the table at compile time
+(``csrc/jacobi_rounds.cuh``, shared with :mod:`.jacobi_proj`). The slot
+rotation has period k - 1, so the layout is the identity again at each
+sweep's end, where the symmetrization and the reconstruction see it.
 
 * :func:`psd_project_rr` — the wrapper: the kernel for a CUDA tensor (one
   launch, counted in ``psd_project_rr.launches``), the plain version for a
@@ -32,18 +35,6 @@ from . import cuda_build
 from . import eigh as eigh_mod
 from .cuda_build import kernel_takes
 
-SOURCE = cuda_build.CSRC / "jacobi_proj_rr.cu"
-
-
-def build():
-    """Compile ``csrc/jacobi_proj_rr.cu`` unless it is built."""
-    return cuda_build.build(SOURCE)
-
-
-@lru_cache(maxsize=None)
-def _library():
-    return cuda_build.load_jacobi(SOURCE, "jacobi_proj_rr")
-
 
 def _slot_rotate(labels: np.ndarray) -> np.ndarray:
     """The circle-method slot rotation of ``pallas_eigh._slot_rotate`` on a
@@ -63,7 +54,7 @@ def pair_table(k: int) -> np.ndarray:
     indices (p, q) = table[r, t] — p at slot 2t, q at slot 2t+1, which
     fixes the sign of tau."""
     if not k % 2 == 0 or k < 4:
-        raise ValueError(f"the round-parallel schedule needs an even side >= 4, got {k}")
+        raise ValueError(f"the slot-rotation schedule needs an even side >= 4, got {k}")
     labels = np.arange(k)
     table = np.empty((k - 1, k // 2, 2), np.uint8)
     for r in range(k - 1):
@@ -92,12 +83,12 @@ def jacobi_proj_rr_cuda(X: torch.Tensor, sweeps: int) -> torch.Tensor:
     CUDA tensor, kernel_takes(k)) on the current stream. Does not count."""
     if X.device.type != "cuda":
         raise ValueError(f"jacobi_proj_rr_cuda needs a CUDA tensor, got {X.device}")
-    return cuda_build.launch_jacobi(_library(), "jacobi_proj_rr", X,
+    return cuda_build.launch_jacobi(cuda_build.jacobi_library(), "jacobi_proj_rr", X,
                                     _table_on(X.shape[-1], X.device), sweeps)
 
 
 def psd_project_rr(X: torch.Tensor, sweeps: int = 6) -> torch.Tensor:
-    """PSD-project a stack [B, k, k] with the round-parallel Jacobi: the
+    """PSD-project a stack [B, k, k] with the slot-rotation Jacobi: the
     kernel on a CUDA device (one launch, counted), its plain version on
     the CPU; ``torch.linalg.eigh`` for sides outside even 4..48."""
     if not kernel_takes(X.shape[-1]):

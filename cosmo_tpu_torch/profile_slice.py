@@ -8,7 +8,7 @@
 banded`` (the second slice): ``problems.banded_sdp(10000, 8, seed=0,
 sparse=True)`` through chordal decomposition and the block-diagonal KKT,
 plain ADMM, float64 only (float32 there needs the df32 endgame, not ported);
-set ``COSMO_TPU_PALLAS_RR=1`` to profile the round-parallel kernel.
+set ``COSMO_TPU_PALLAS_RR=1`` to profile the slot-rotation kernel.
 
 The problem is solved once to warm up, once more without the profiler and
 once under ``torch.profiler``. It prints the set-up and loop times of the

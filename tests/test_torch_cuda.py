@@ -27,6 +27,48 @@ def _stack(B, k, dtype, device, seed):
     return torch.as_tensor((G + G.swapaxes(1, 2)) / 2, dtype=dtype, device=device)
 
 
+def _guard_stack(B, k, dtype, device, seed):
+    """Symmetric Gaussian matrices; from B = 5 on, matrix 1 has equal
+    diagonal entries (tau = 0), matrix 2 exact zeros off the diagonal (the
+    identity rotation), matrix 3 one NaN entry and matrix 4 off-diagonal
+    entries just above the identity guard (|tau| ~ 1e36, or 1e300 in f64:
+    sqrt(1 + tau^2) rounds to |tau|)."""
+    G = np.random.default_rng(seed).standard_normal((B, k, k))
+    X = (G + G.swapaxes(1, 2)) / 2
+    if B >= 5:
+        X[1] = 0.25
+        X[1][np.diag_indices(k)] = 1.0
+        X[2] = np.diag(np.arange(k) % 3 - 1.0)
+        X[3, 0, k - 1] = X[3, k - 1, 0] = np.nan
+        X[4] = 1e-300 if dtype == torch.float64 else 1e-36
+        X[4][np.diag_indices(k)] = np.arange(k) + 1.0
+    return torch.as_tensor(X, dtype=dtype, device=device)
+
+
+def _check_against_plain(wrapper, plain, dtype, tol, device):
+    """Every even k of the kernels' domain (the register body up to 16, the
+    shared-memory body above), B in {1, 31, 257}: one matrix a warp on an
+    H100's 132 SMs. The register body packs several matrices a warp once
+    B > 4 x 132; there B in {2498, 8539} also runs, where the guard
+    matrices share a warp with live neighbours and the last warp is partly
+    empty (k = 16: 4 a warp, 2 and 3 in the last). One counted launch
+    each, a NaN matrix NaN and no other touched by it, the rest within
+    ``tol`` of max |X|."""
+    for k in range(4, 49, 2):
+        for B in (1, 31, 257, 2498, 8539) if k <= 16 else (1, 31, 257):
+            X = _guard_stack(B, k, dtype, device, seed=100 * k + B)
+            before = wrapper.launches
+            got = wrapper(X, 8)
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + 1
+            ref = plain(X, 8)
+            bad = torch.isnan(X).flatten(1).any(1)
+            assert torch.isnan(got[bad]).all()
+            assert torch.isfinite(got[~bad]).all(), (k, B)
+            err = (got[~bad] - ref[~bad]).abs().max().item()
+            assert err <= tol * X[~bad].abs().max().item(), (k, B, err)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
 def test_kernel_matches_plain_on_card(cuda, dtype, tol):
@@ -34,14 +76,8 @@ def test_kernel_matches_plain_on_card(cuda, dtype, tol):
     relative to max |X|: f64 to 1e-10 (same angles, other rounding order);
     f32 to 1e-4, twice the ~2e-5 backward-error floor each of the two f32
     computations carries at k <= 48."""
-    for k in (8, 16, 32, 48):
-        X = _stack(257, k, dtype, cuda, seed=k)
-        before = J.psd_project_pallas.launches
-        got = J.psd_project_pallas(X, 8)
-        torch.cuda.synchronize()
-        assert J.psd_project_pallas.launches == before + 1
-        ref = J.psd_project_jacobi_plain(X, 8)
-        assert (got - ref).abs().max().item() <= tol * X.abs().max().item()
+    _check_against_plain(J.psd_project_pallas, J.psd_project_jacobi_plain, dtype, tol,
+                         cuda)
 
 
 @pytest.mark.cuda
@@ -58,16 +94,10 @@ def test_kernel_refuses_bad_input_on_card(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
 def test_rr_kernel_matches_plain_on_card(cuda, dtype, tol):
-    """The round-parallel CUDA kernel against its plain version, with the
-    serial kernel's limits (relative to max |X|)."""
-    for k in (8, 16, 32, 48):
-        X = _stack(257, k, dtype, cuda, seed=k)
-        before = R.psd_project_rr.launches
-        got = R.psd_project_rr(X, 8)
-        torch.cuda.synchronize()
-        assert R.psd_project_rr.launches == before + 1
-        ref = R.psd_project_jacobi_rr_plain(X, 8)
-        assert (got - ref).abs().max().item() <= tol * X.abs().max().item()
+    """The slot-rotation CUDA kernel against its plain version, with the
+    other kernel's limits (relative to max |X|)."""
+    _check_against_plain(R.psd_project_rr, R.psd_project_jacobi_rr_plain, dtype, tol,
+                         cuda)
 
 
 @pytest.mark.cuda

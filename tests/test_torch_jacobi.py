@@ -85,3 +85,100 @@ def test_pair_schedule_matches_reference():
 def test_cuda_entry_refuses_a_cpu_tensor():
     with pytest.raises(ValueError):
         J.jacobi_proj_cuda(torch.as_tensor(sym_stack(2, 8, seed=0)), 8)
+
+
+def test_library_path_hashes_the_included_headers(tmp_path):
+    """The kernels' library name changes when a header its sources include
+    from csrc/ changes, or one of its sources, so an edited file never
+    loads a stale build."""
+    import shutil
+
+    from cosmo_tpu_torch.ops import cuda_build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)
+    for name in cuda_build.JACOBI_SOURCES:
+        assert [p.name for p in cuda_build._sources(csrc / name)] == [name,
+                                                                    "jacobi_rounds.cuh"]
+
+    def path():
+        return cuda_build.library_path([csrc / n for n in cuda_build.JACOBI_SOURCES],
+                                       "jacobi")
+
+    before = path()
+    assert before == cuda_build.library_path(
+        [cuda_build.CSRC / n for n in cuda_build.JACOBI_SOURCES], "jacobi")
+    header = csrc / "jacobi_rounds.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = path()
+    assert edited != before
+    smem = csrc / "jacobi_smem.cu"
+    smem.write_text(smem.read_text() + "\n// edited\n")
+    assert path() not in (before, edited)
+
+
+_FAKE_NVCC = """#!{python}
+import sys
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+with open({calls!r}, "a") as f:
+    f.write(" ".join(args) + "\\n")
+if "-c" in args:
+    src = args[-1]
+    if "broken" in open(src).read():
+        print(src + ": error")
+        sys.exit(1)
+    print("ptxas info : compiled " + src)
+open(out, "w").write("built")
+"""
+
+
+def test_build_compiles_each_source_then_links_once(tmp_path, monkeypatch):
+    """build() starts one ``nvcc -c`` per source and links their objects
+    into one library (a stand-in nvcc here: no CUDA toolkit on the CPU),
+    keeps every compiler report in the .log, leaves no object behind,
+    reuses a built library, and raises naming a source that fails."""
+    import sys
+
+    from cosmo_tpu_torch.ops import cuda_build
+
+    calls = tmp_path / "calls.txt"
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable, calls=str(calls)))
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    sources = [tmp_path / f"{n}.cu" for n in ("a", "b", "c")]
+    for src in sources:
+        src.write_text(f"// {src.stem}\n")
+
+    so = cuda_build.build(sources, "fake")
+    assert so.read_text() == "built" and so.parent == tmp_path / "build"
+    lines = calls.read_text().splitlines()
+    assert sorted(line.split()[-1] for line in lines[:3]) == [str(s) for s in sources]
+    assert all("-c" in line.split() for line in lines[:3])
+    assert "-shared" in lines[3].split() and len(lines) == 4
+    assert all(f"compiled {s}" in so.with_suffix(".log").read_text() for s in sources)
+    assert not list((tmp_path / "build").glob("*.o"))
+    assert cuda_build.build(sources, "fake") == so
+    assert len(calls.read_text().splitlines()) == 4
+
+    sources[1].write_text("broken\n")
+    with pytest.raises(RuntimeError, match="b.cu"):
+        cuda_build.build(sources, "fake")
+    assert not cuda_build.library_path(sources, "fake").is_file()
+    assert not list((tmp_path / "build").glob("*.o"))
+
+
+def test_register_body_takes_every_side_the_auto_rule_sends():
+    """The auto rule sends sides <= AUTO_KERNEL_MAX_SIDE to the kernels;
+    the kernels' register body (jacobi_rounds.cuh) takes all of them."""
+    import re
+
+    from cosmo_tpu_torch.ops import conedata, cuda_build
+
+    text = (cuda_build.CSRC / "jacobi_rounds.cuh").read_text()
+    register_max = int(re.search(r"kMaxRegSide = (\d+);", text).group(1))
+    assert conedata.AUTO_KERNEL_MAX_SIDE <= register_max
+    assert J.kernel_takes(register_max)

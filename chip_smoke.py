@@ -28,7 +28,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    slot-rotation kernel of ``COSMO_TPU_PALLAS_RR=1`` (each a first
    solve, then a second on the same model), against the
    known objective, and checks that every projection of each solve went
-   through the kernel that run selects and none through the other.
+   through the kernel that run selects and none through the other;
+6. default: solves the same decomposed problem at the north-star settings
+   of ``bench.py`` (``Settings(eps_abs=1e-5, eps_rel=1e-5, max_iter=20000,
+   decompose=True)``, every other option at its default: Anderson
+   acceleration, the f32 refine latch and the df32-compensated block KKT)
+   in float32 (the card's default), then float64, each a first solve and
+   then a second on the same model, against the known objective; checks
+   the block KKT, that every projection went through ``jacobi_proj``, and
+   in float32 that the refine latch tripped and Anderson accelerated. A
+   third float32 solve profiles 20 plain and 20 refined iterations
+   (``torch.profiler``) for the device operations an iteration, under
+   ``torch.cuda.set_sync_debug_mode("warn")``.
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -51,6 +62,9 @@ REF_OBJ = -0.5062352079829      # cosmo_tpu, CPU f64, eps 1e-5 (Solved)
 # max_iter=20000)).set(*problems.banded_sdp(10000, 8, seed=0, sparse=True)[:5])
 # .optimize() -> Solved, 2925 iterations, 5 rho updates
 REF_BANDED = 26934.834386732622
+# bench.py _bench_northstar without its time limit; dtype None: float32 on
+# the card
+NORTHSTAR = dict(eps_abs=1e-5, eps_rel=1e-5, max_iter=20000, decompose=True)
 SWEEPS = 8                      # Settings.jacobi_sweeps default
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): float32 and
 # float64 outside the tensor cores, and HBM3 bandwidth
@@ -317,6 +331,90 @@ def phase_decomposed(device, smi):
     return out
 
 
+def phase_default(device, smi):
+    """The decomposed banded SDP at the north-star settings: Anderson
+    acceleration, the refine latch and the df32 block KKT, through the
+    Jacobi kernel. float32 then float64, each cold then warm; then a third
+    float32 solve with two profiled windows of iterations."""
+    import warnings
+
+    import torch
+    import cosmo_tpu_torch as pt
+    from cosmo_tpu_torch import problems
+    from cosmo_tpu_torch.profile_slice import IterationWindows
+
+    data = problems.banded_sdp(10000, 8, seed=0, sparse=True)[:5]
+    out = {}
+    for dtype, rel in ((None, 1e-4), (np.float64, 1e-6)):
+        name = "float64" if dtype is not None else "float32"
+        model = pt.Model(pt.Settings(**NORTHSTAR, dtype=dtype), device=device).set(*data)
+        for run in ("cold", "warm"):
+            res, counts = counted_optimize(model)
+            out[f"{name}_{run}"] = _check_default(model, res, counts, name, run, rel, smi)
+        if dtype is None:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                windows = IterationWindows(caught)
+                try:
+                    res = model.optimize(on_iter=windows)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            info = model.last_solve
+            flagged = [w for w in caught if "synchroniz" in str(w.message)]
+            latch = (len(caught) if windows.warned_at_latch is None
+                     else windows.warned_at_latch)
+            per = windows.close(res.iter)
+            out["float32_profiled"] = dict(
+                status=res.status, iter=res.iter, windows=per,
+                flagged_syncs=len(flagged), flagged_before_latch=latch,
+                syncs=info["syncs"])
+            log(f"[default] float32 profiled: {res.status}, {res.iter} iters; device "
+                f"operations an iteration {per}; torch-flagged synchronizing calls "
+                f"{len(flagged)} ({latch} before the latch), solver host waits "
+                f"{info['syncs']} [{smi}]")
+            if res.status != "Solved" or set(per) != {"plain", "refined"}:
+                raise AssertionError(f"default float32 profiled run: {res.status}, {per}")
+    return out
+
+
+def _check_default(model, res, counts, name, run, rel, smi):
+    """Log one north-star solve and hold it to the contract of phase 6."""
+    from cosmo_tpu_torch.profile_slice import host_waits
+
+    info = model.last_solve
+    err = abs(res.obj_val - REF_BANDED) / abs(REF_BANDED)
+    ips = res.iter / info["iter_time"]
+    iters = res.iter
+    latch = info["refine_iter"]
+    hist = res.info.res_history
+    waits = host_waits(info, iters)
+    log(f"[default] {name} {run}: {res.status}, {iters} iters ({res.safeguarding_iter} "
+        f"safeguarding), {info['n_accelerated']} accelerated, refine latch at "
+        f"iteration {latch}, obj {res.obj_val:.12f} (rel err {err:.2e}, limit "
+        f"{rel:.0e}), setup {res.times.setup_time:.3f} s, solve {info['iter_time']:.3f} s, "
+        f"{ips:.1f} iter/s, host waits an iteration {waits}, KKT {info['kkt_solver']}, PSD backend "
+        f"{info['bucket_backends']}, launches {counts} / projections "
+        f"{info['projections']} [{smi}]")
+    if res.status != "Solved" or not err <= rel:
+        raise AssertionError(f"default {name}: {res.status}, obj {res.obj_val}")
+    if info["kkt_solver"] != "blockdiag" or info["bucket_backends"] != ("pallas",):
+        raise AssertionError(f"default {name} left the main path: {info}")
+    if not counts["jacobi_proj"] == info["projections"] > 0 or counts["jacobi_proj_rr"]:
+        raise AssertionError(f"default {name}: {counts} kernel launches for "
+                             f"{info['projections']} projections")
+    if name == "float32" and not (latch > 0 and hist[-1, 5] == 1.0
+                                  and info["n_accelerated"] > 0):
+        raise AssertionError(f"default float32: latch {latch}, last history row "
+                             f"{hist[-1]}, {info['n_accelerated']} accelerated")
+    return dict(status=res.status, iter=iters, safeguarding_iter=res.safeguarding_iter,
+                n_accelerated=info["n_accelerated"], refine_iter=latch, obj=res.obj_val,
+                rel_err=err, setup_s=res.times.setup_time, solve_s=info["iter_time"],
+                iter_per_s=ips, syncs=info["syncs"], refine_syncs=info["refine_syncs"],
+                host_waits_per_iter=waits,
+                launches=counts["jacobi_proj"], projections=info["projections"])
+
+
 def phase_known_answers(device):
     """The known answers of the verify notes, float64 on ``device``."""
     import cosmo_tpu_torch as pt
@@ -397,22 +495,27 @@ def main(argv=None):
     slice_out = timed("slice", lambda: phase_slice(device, smi))
     known = timed("known", lambda: phase_known_answers(device))
     decomposed = timed("decomposed", lambda: phase_decomposed(device, smi))
+    default = timed("default", lambda: phase_default(device, smi))
     seconds["total"] = time.perf_counter() - t0
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
 
-    # each kernel at the decomposed path's shape (float64, B = 2498, k = 16),
-    # with the launches of that path's warm solve
+    # each kernel at the decomposed path's shape (B = 2498, k = 16), with the
+    # launches of its path's warm solve: jacobi_proj on the default path
+    # (float32), jacobi_proj_rr under COSMO_TPU_PALLAS_RR (phase 5, float64)
     kernels = []
-    for name, replaces in (("jacobi_proj", "cosmo_tpu/ops/pallas_eigh.py:132"),
-                           ("jacobi_proj_rr", "cosmo_tpu/ops/pallas_eigh.py:69")):
+    for name, replaces, dtype_name, launches in (
+            ("jacobi_proj", "cosmo_tpu/ops/pallas_eigh.py:132", "float32",
+             default["float32_warm"]["launches"]),
+            ("jacobi_proj_rr", "cosmo_tpu/ops/pallas_eigh.py:69", "float64",
+             decomposed["jacobi_proj_rr_warm"]["launches"])):
         row = next(r for r in kernel_rows if r["kernel"] == name
-                   and r["dtype"] == "float64" and r["k"] == 16 and r["B"] == 2498)
+                   and r["dtype"] == dtype_name and r["k"] == 16 and r["B"] == 2498)
         kernels.append(dict(
             name=name,
             route="cuda",
             source=f"cosmo_tpu_torch/csrc/{name}.cu",
             replaces=replaces,
-            launches=decomposed[f"{name}_warm"]["launches"],
+            launches=launches,
             max_abs_err=row["max_abs_err"],
             ms=row["ms"],
             plain_ms=row["plain_ms"],
@@ -425,7 +528,8 @@ def main(argv=None):
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                            seconds=seconds, kernel=kernel_rows, slice=slice_out,
-                           known=known, decomposed=decomposed, kernels=kernels),
+                           known=known, decomposed=decomposed, default=default,
+                           kernels=kernels),
                       f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -89,9 +89,8 @@ def chordal_info_from_dict(d: dict) -> transform.ChordalInfo:
 
 def blockkkt_meta_from_dict(d: dict, device) -> blockkkt.BlockKKTMeta:
     """A ``cosmo_tpu.ops.blockkkt.BlockKKTMeta`` as a dict -> this
-    package's BlockKKTMeta on ``device``. Its double-f32 assembly maps
-    (``m_*``) and mesh ``spec`` are dropped: this package has no
-    refinement and no mesh yet."""
+    package's BlockKKTMeta on ``device``. Its mesh ``spec`` is dropped:
+    this package has no mesh yet."""
     buckets = tuple(blockkkt.BlockBucket(**_pick(blockkkt.BlockBucket, b))
                     for b in d["buckets"])
     return blockkkt.meta_to_device(
@@ -100,6 +99,5 @@ def blockkkt_meta_from_dict(d: dict, device) -> blockkkt.BlockKKTMeta:
 
 def coo_from_dict(d: dict, device, dtype: torch.dtype) -> linops.Coo:
     """A ``cosmo_tpu.ops.linops.Coo`` as a dict -> this package's Coo on
-    ``device`` (its segment pointers, which serve the double-f32 matvecs,
-    are dropped)."""
+    ``device``."""
     return linops.coo_to_device(linops.Coo(**_pick(linops.Coo, d)), device, dtype)

@@ -16,7 +16,6 @@ operators, cones and vectors by the solve's structure (``struct_key``).
 """
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import List, Optional, Sequence, Union
 
@@ -47,19 +46,6 @@ def _default_dtype(settings: Settings, device: torch.device) -> torch.dtype:
     if settings.dtype is not None:
         return torch_dtype(settings.dtype)
     return torch.float32 if device.type == "cuda" else torch.float64
-
-
-@contextlib.contextmanager
-def _full_f32_matmuls():
-    """float32 products in full float32 (no TF32) for the solve — the
-    counterpart of the JAX package's ``matmul_precision="highest"``."""
-    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
 class Model:
@@ -159,9 +145,6 @@ class Model:
     def _check_supported(self, settings: Settings, mesh):
         if mesh is not None:
             raise not_ported("optimize(mesh=...)", "mesh")
-        if settings.accelerator is not None:
-            raise not_ported("Anderson acceleration (pass accelerator=None)",
-                             "Anderson acceleration")
         if not isinstance(settings.kkt_solver, str) or settings.kkt_solver not in (
                 KKT_DENSE, KKT_BLOCK):
             raise not_ported(f"kkt_solver={settings.kkt_solver!r}",
@@ -279,8 +262,9 @@ class Model:
         )
         return self._dev_cache
 
-    def optimize(self, mesh=None) -> results_mod.Result:
-        """Solve the assembled problem on the model's device."""
+    def optimize(self, mesh=None, on_iter=None) -> results_mod.Result:
+        """Solve the assembled problem on the model's device. ``on_iter``:
+        the solver's profiling hook (``solver.solve``)."""
         if not self.is_assembled:
             raise RuntimeError(
                 "The model has to be assembled/set before optimize() can be called."
@@ -323,11 +307,10 @@ class Model:
         times.setup_time = time.perf_counter() - t_setup
 
         t_iter = time.perf_counter()
-        with _full_f32_matmuls():
-            out = solver_mod.solve(dev["Pd"], dev["Ad"], dev["qd"], dev["bd"], cones,
-                                   dev["x0"], dev["s0"], dev["mu0"], dyn, static,
-                                   kkt_block=kkt_block,
-                                   rho_row_scale=dev["rho_row_scale"])
+        out = solver_mod.solve(dev["Pd"], dev["Ad"], dev["qd"], dev["bd"], cones,
+                               dev["x0"], dev["s0"], dev["mu0"], dyn, static,
+                               kkt_block=kkt_block, rho_row_scale=dev["rho_row_scale"],
+                               on_iter=on_iter)
         times.iter_time = time.perf_counter() - t_iter
 
         t_post = time.perf_counter()
@@ -345,6 +328,9 @@ class Model:
             jacobi_kernel=(jacobi_proj.selected_kernel()
                            if "pallas" in backends else None),
             projections=out["projections"], iter_time=times.iter_time,
+            kkt_refine_steps=static.kkt_refine_steps, accel_mem=static.accel_mem,
+            n_accelerated=out["n_accelerated"], refine_iter=out["refine_iter"],
+            syncs=out["syncs"], refine_syncs=out["refine_syncs"],
         )
 
         status = results_mod.STATUS_NAMES[int(out["status"])]
@@ -369,8 +355,8 @@ class Model:
         result = results_mod.Result(
             x=x, y=y, s=s,
             obj_val=float(out["cost"]),
-            iter=int(out["iter"]),
-            safeguarding_iter=0,
+            iter=int(out["iter"]) + int(out["safeguarding_iter"]),
+            safeguarding_iter=int(out["safeguarding_iter"]),
             status=status,
             info=info,
             times=times,

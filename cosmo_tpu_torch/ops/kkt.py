@@ -18,6 +18,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from . import df32
 from .linops import AtRhoA, matvec, rmatvec
 
 
@@ -58,9 +59,22 @@ def _kkt_apply(state: DenseKKTState, t):
     return state.Minv @ t
 
 
-def dense_solve(state: DenseKKTState, A, rho_vec, r1, r2):
-    """Solve the KKT system via the cached factor. Returns (x_tilde, nu)."""
-    t = r1 + rmatvec(A, rho_vec * r2)
-    x = _kkt_apply(state, t)
+def dense_solve(state: DenseKKTState, P, A, sigma, rho_vec, r1, r2,
+                refine_steps: int = 0):
+    """Solve the KKT system via the cached factor. Returns (x_tilde, nu).
+
+    ``refine_steps`` > 0 runs that many iterative-refinement corrections
+    with the residual computed in compensated double-f32 against the exact
+    P, A, sigma and rho (ops/df32.py): the forward error drops from
+    kappa(M) eps to the f32 representation floor."""
+    if refine_steps <= 0:
+        x = _kkt_apply(state, r1 + rmatvec(A, rho_vec * r2))
+    else:
+        t_pair = df32.kkt_rhs2(A, rho_vec, r1, r2)
+        x_pair = df32.promote(_kkt_apply(state, t_pair[0]))
+        for _ in range(refine_steps):
+            r = df32.kkt_residual_pair(P, A, sigma, rho_vec, t_pair, x_pair)
+            x_pair = df32.add(x_pair, df32.promote(_kkt_apply(state, r)))
+        x = df32.to_f32(x_pair)
     nu = rho_vec * (matvec(A, x) - r2)
     return x, nu

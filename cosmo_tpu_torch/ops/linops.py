@@ -27,7 +27,10 @@ class Coo:
     """COO sparse matrix with row-sorted and column-sorted copies of its
     triplets (see ``cosmo_tpu.ops.linops.Coo``). The row-sorted order is
     the canonical one of :func:`coo_from_scipy`, which the block KKT's
-    nnz-index maps (ops/blockkkt.py) point into."""
+    nnz-index maps (ops/blockkkt.py) point into. ``row_ptr``/``col_ptr``
+    are the CSR/CSC segment pointers into the two copies, with the longest
+    segment of each: the compensated double-f32 matvecs (ops/df32.py)
+    reduce each row or column as one fixed-width gather."""
 
     m: int
     n: int
@@ -37,6 +40,10 @@ class Coo:
     crows: Any = None   # int [nnz] (column-sorted copy)
     ccols: Any = None   # int [nnz], sorted ascending
     cvals: Any = None   # [nnz]
+    row_ptr: Any = None  # int [m+1] segment starts in the row-sorted copy
+    col_ptr: Any = None  # int [n+1] segment starts in the column-sorted copy
+    max_row_nnz: int = 0
+    max_col_nnz: int = 0
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -59,8 +66,11 @@ def coo_from_scipy(A, dtype=np.float64) -> Coo:
     v = np.asarray(Ac.data, dtype=dtype)
     pr = np.lexsort((c, r))
     pc = np.lexsort((r, c))
+    row_ptr, w_r = segment_ptr(r[pr], m)
+    col_ptr, w_c = segment_ptr(c[pc], n)
     return Coo(m=m, n=n, rows=r[pr], cols=c[pr], vals=v[pr],
-               crows=r[pc], ccols=c[pc], cvals=v[pc])
+               crows=r[pc], ccols=c[pc], cvals=v[pc],
+               row_ptr=row_ptr, col_ptr=col_ptr, max_row_nnz=w_r, max_col_nnz=w_c)
 
 
 def coo_to_device(A: Coo, device, dtype: torch.dtype) -> Coo:

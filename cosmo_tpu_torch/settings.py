@@ -216,13 +216,17 @@ class DynConfig(NamedTuple):
 
 def split_settings(settings: Settings, m: int, n: int, dtype,
                    refine_hint: bool = True,
-                   device: torch.device | str = "cpu") -> tuple[StaticConfig, DynConfig]:
+                   device: torch.device | str | None = None
+                   ) -> tuple[StaticConfig, DynConfig]:
     """Split user settings into (static, dynamic) solve configuration.
 
     ``dtype`` is a numpy or torch floating dtype. ``refine_hint``: whether
     the problem carries rho_eq-amplified rows (ZeroSet / Box with l == u),
     which make the auto ``kkt_refine_steps`` resolve to 1 in float32.
+    ``device``: where the dynamic scalars live, the solve's device (None:
+    ``cuda``, where the package's entry points solve by default).
     """
+    device = torch.device("cuda" if device is None else device)
     tdtype = torch_dtype(dtype)
     is_f32 = tdtype == torch.float32
     accel_mem = settings.accelerator_mem if settings.accelerator == "anderson" else 0

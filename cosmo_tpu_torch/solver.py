@@ -1,18 +1,34 @@
 """The ADMM core (the port of ``cosmo_tpu.solver.solve`` with the dense or
-the block-diagonal KKT, without Anderson acceleration).
+the block-diagonal KKT).
 
 Reference call stack: src/solver.jl:78-203 (optimize!), :7-65 (admm_z!/
-admm_x!/admm_w!), :242-292 (rho adaptation), :303-356 (termination).
+admm_x!/admm_w!), :242-292 (rho adaptation), :303-356 (termination),
+src/accelerator_interface.jl (safeguarded Anderson acceleration).
 
 The JAX package runs the whole solve as one jitted ``lax.while_loop`` with
 ``lax.cond`` gates. Here the loop is a host Python loop over device
-tensors with the same check cadence, deferral rules and statuses. Counters
+tensors with the same check cadence, control lattice and statuses. Counters
 and flags whose next value the host can compute (iteration, due flags,
-certificate window) stay Python ints; everything else stays on the device.
-The host waits for the device only where a decision needs a device value:
-once per termination check (status), once per rho adaptation (whether rho
-changed, which decides the refactor) and once per infeasibility check
-(status and the certificate window).
+certificate window, the refine latch between checks) stay Python values;
+everything else stays on the device, where the accelerator's gates and the
+safeguard's decline are value selections. The host waits for the device
+only where the reference's control flow needs a device value:
+
+* once per termination check (status, the refine latch, the forced rho
+  update) and once per rho adaptation (whether rho changed);
+* once per infeasibility check (status and the certificate window);
+* under Anderson acceleration, while a rho update is pending: whether this
+  iteration accelerated (deferred updates run on plain iterations only);
+  that flag is copied to pinned host memory right after the accelerator
+  step and read after the projection is queued;
+* under the safeguard, once per iteration: whether the previous pass was
+  declined (then this pass is its plain replay, which counts as a
+  safeguarding iteration). That flag is copied to pinned host memory right
+  after the safeguard, and read after the next pass's accelerator step and
+  projection are queued.
+
+So the card works on the queued projection while the host waits for a
+flag.
 
 With the block-diagonal KKT (``ops/blockkkt.py``) the x half of the
 operator variable lives in the block-space layout for the whole loop (the
@@ -21,19 +37,22 @@ only at the checks and at exit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any
+from typing import Any, Callable, Optional
 
 import torch
 
-from . import results
+from . import accel, results
 from .ops import blockkkt
+from .ops import df32
 from .ops import infeasibility as infeas
 from .ops import kkt as kkt_ops
 from .ops import projections
 from .ops import residuals as res_ops
 from .ops import scaling as scaling_ops
 from .ops.conedata import not_ported
+from .ops.linops import Coo
 from .settings import DynConfig, StaticConfig, KKT_BLOCK, KKT_DENSE
 
 RHO_LOG_LEN = 64
@@ -42,7 +61,26 @@ RHO_LOG_LEN = 64
 # the shadow trajectory; stagnant checks with loose-certificate evidence
 # escalate it x4 up to 512 (cosmo_tpu.solver, INFEAS_PLAIN_WINDOW)
 INFEAS_PLAIN_WINDOW = 1
-# consecutive stagnant+evidence checks before the window escalates
+
+# the control lattice (cosmo_tpu.solver, where each was tuned):
+# refined-endgame latch: the stall fallback fires after this many checks
+# without a 5% residual-score improvement, but only within
+# REFINE_NEAR_SWITCH x of the switch; REFINE_STALL_LAST_RESORT is the
+# far-from-switch escape for extreme-kappa floors
+REFINE_STALL_CHECKS = 4
+REFINE_NEAR_SWITCH = 50.0
+REFINE_STALL_LAST_RESORT = 16
+# Anderson stall toggle: a trip with score > AA_STRIKE_FACTOR x best is a
+# strike (divergence evidence); AA_STRIKE_KILL strikes disable the
+# accelerator for the rest of the solve; a suspended accelerator re-arms
+# only while the score is within AA_REARM_FACTOR x of the best
+AA_STRIKE_FACTOR = 100.0
+AA_STRIKE_KILL = 2
+AA_REARM_FACTOR = 10.0
+# forced deadband-free rho re-adaptations per solve, fired on a stall trip
+# while the residuals are far from termination
+FORCED_RHO_BUDGET = 2
+# consecutive stagnant+evidence checks before the certificate window escalates
 ESCALATE_STAG_CHECKS = 2
 
 # rho row classes (reference: src/parameters.jl:17-49)
@@ -79,20 +117,60 @@ def _classify_rows(cones, b, lb, ub, dyn):
 
 def check_supported(static: StaticConfig):
     """Raise NotImplementedError for a configuration this solver lacks."""
-    if static.accel_mem > 0:
-        raise not_ported("Anderson acceleration (Settings.accelerator)",
-                         "Anderson acceleration")
     if not isinstance(static.kkt_solver, str) or static.kkt_solver not in (
             KKT_DENSE, KKT_BLOCK):
         raise not_ported(f"kkt_solver={static.kkt_solver!r}",
                          "Coo + CG" if static.kkt_solver in ("cg", "minres")
                          else "custom KKT solvers")
-    if static.kkt_refine_steps > 0:
-        raise not_ported("the compensated KKT refinement (kkt_refine_steps > 0; "
-                         "auto in float32 with ZeroSet or l == u Box rows)",
-                         "df32 endgame")
     if static.mixed_precision:
-        raise not_ported("mixed_precision=True", "df32 endgame")
+        raise not_ported("mixed_precision=True", "mixed precision")
+
+
+@contextlib.contextmanager
+def _full_f32_matmuls():
+    """float32 products in full float32 (no TF32) — the counterpart of the
+    JAX package's ``matmul_precision="highest"``: the Anderson Gram, the
+    block inverses' applies and the einsums over the block-dense A."""
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+class _FlagReader:
+    """Brings one device bool to the host. On a CUDA device :meth:`post`
+    queues its copy into pinned memory and records an event, and
+    :meth:`read` waits on that event only, not on the work queued after it.
+    Each read that waits counts in ``waits``."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.buf = torch.empty(1, dtype=torch.bool, pin_memory=True)
+            self.event = torch.cuda.Event()
+        self.flag = None
+        self.value = False
+        self.waits = 0
+
+    def post(self, flag):
+        if self.cuda:
+            self.buf.copy_(flag.reshape(1), non_blocking=True)
+            self.event.record()
+        self.flag = flag
+
+    def read(self) -> bool:
+        if self.flag is not None:
+            if self.cuda:
+                self.event.synchronize()
+                self.value = bool(self.buf[0])
+            else:
+                self.value = bool(self.flag)
+            self.flag = None
+            self.waits += 1
+        return self.value
 
 
 @dataclasses.dataclass
@@ -116,31 +194,55 @@ class _Loop:
     chk_best: Any        # best residual score seen at a certificate check
     rho_log: Any
     hist: Any
+    aa: Any = None       # AccelState, or None without acceleration
+    redo: Any = None     # device bool: the safeguard declined this pass
+    due_age: Any = None  # device int32: iterations a deferred rho update starved
+    ref_stall: Any = None  # device int32: stagnant checks while refinement is off
+    ref_best: Any = None   # best residual score seen while refinement is off
     it: int = 0
+    sg_iter: int = 0     # safeguarding (redo) passes
     status: int = results.UNDETERMINED
     infeas_due: bool = False
     rho_due: bool = False
+    rho_force: bool = False  # a stall trip asked for a deadband-free rho update
+    n_forced: int = 0
     dy_age: int = -1     # shadow steps since the window was armed (-1: not armed)
     inf_win: int = INFEAS_PLAIN_WINDOW
     stag_chks: int = 0
+    refine_on: bool = True   # the df32 KKT refinement is latched on
+    refine_iter: int = -1    # the iteration at which the latch tripped
+    refine_syncs: int = 0    # host waits before the latch tripped
     n_rho_adapt: int = 0
     hist_n: int = 0
     projections: int = 0
+    syncs: int = 0       # host waits for the device, the flag reads aside
 
 
 def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
-          kkt_block=None, rho_row_scale=None):
+          kkt_block=None, rho_row_scale=None,
+          on_iter: Optional[Callable[[int, bool], None]] = None):
     """Full solve of ``min 1/2 x'Px + q'x s.t. Ax + s = b, s in K`` on the
-    device of ``q``. ``cones`` is a device ConeData. With the dense KKT,
-    ``P`` is a dense tensor and ``A`` dense or
-    :class:`~cosmo_tpu_torch.ops.linops.Bde`; with ``kkt_solver ==
+    device of ``q``, with float32 products in full float32. ``cones`` is a
+    device ConeData. With the dense KKT, ``P`` is a dense tensor and ``A``
+    dense or :class:`~cosmo_tpu_torch.ops.linops.Bde`; with ``kkt_solver ==
     "blockdiag"`` both are :class:`~cosmo_tpu_torch.ops.linops.Coo` and
     ``kkt_block`` is the device :class:`~cosmo_tpu_torch.ops.blockkkt.
     BlockKKTMeta`. ``rho_row_scale``: an optional static per-row rho scale.
-    Returns a dict of host values (numpy arrays and Python numbers)."""
+    ``on_iter(iteration, refine_on)``, if given, is called on the host after
+    every pass (a profiling hook). Returns a dict of host values (numpy
+    arrays and Python numbers)."""
     check_supported(static)
+    with _full_f32_matmuls():
+        return _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block,
+                      rho_row_scale, on_iter)
+
+
+def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale,
+           on_iter):
     m, n = static.m, static.n
     dtype, device = q.dtype, q.device
+    accel_on = static.accel_mem > 0
+    guarded = accel_on and static.safeguard
 
     # ------------------------------------------------------------------
     # Setup (reference: solver.jl:96-138, setup.jl)
@@ -159,6 +261,15 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
     rho_vec = _make_rho_vec(rho, rho_class, dyn, rho_row_scale)
     rho_log = torch.zeros(RHO_LOG_LEN, dtype=dtype, device=device)
     rho_log[0] = rho
+
+    # the periodic residual measurements ride the compensated matvecs once
+    # the refine latch is on (before it, plain-f32 measurements are as
+    # meaningful as the plain-f32 solves they measure)
+    compensated_res = static.kkt_refine_steps > 0
+    # endgame gate: KKT solves run plain while the relative residuals sit
+    # above kkt_refine_switch; the refinement latches on, one way, at the
+    # first termination check under the switch (or on the stall fallbacks)
+    refine_gated = static.kkt_refine_gated and static.kkt_refine_steps > 0
 
     use_block = static.kkt_solver == KKT_BLOCK
     if use_block and kkt_block is None:
@@ -190,29 +301,53 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
             return xg
     qx = x_to_block(q)
 
-    # the explicit-inverse apply is plain-ADMM-only (kkt.dense_factor)
-    use_inverse = static.accel_mem == 0
+    # compensated checks through the block-dense A (one batched pass per
+    # bucket instead of the global df32 COO gathers)
+    use_bspace_res = use_bspace and isinstance(P, Coo)
+    if use_bspace_res:
+        res_covered = blockkkt.covered_rows_mask(kkt_block, m)
+        p_has_nnz = P.vals.numel() > 0
+
+    def bspace_comp_res(c, x_k, s_k, mu_k, scaled: bool):
+        """(rp, rd, mp, md) in double-f32 via the block-dense A."""
+        if scaled:
+            Einv_v, Dv, cinv_v = sm.Einv, sm.Dinv, sm.cinv
+        else:
+            Einv_v = torch.ones(m, dtype=dtype, device=device)
+            Dv = torch.ones(n, dtype=dtype, device=device)
+            cinv_v = torch.ones((), dtype=dtype, device=device)
+        Px_pair_g = None
+        if p_has_nnz:
+            pxh, pxl = df32.matvec2(P, df32.promote(x_k))
+            Px_pair_g = (x_to_block(pxh), x_to_block(pxl))
+        return blockkkt.compensated_residuals(
+            kkt_block, c.kkt, c.w_prev[:nx], s_k, mu_k, b, qx,
+            Einv_v, x_to_block(Dv), cinv_v, Px_pair_g, covered=res_covered)
 
     def kkt_setup(rho_vec):
         if use_block:
-            return blockkkt.factor(kkt_block, P, A, dyn.sigma, rho_vec)
-        return kkt_ops.dense_factor(P, A, dyn.sigma, rho_vec, use_inverse)
+            return blockkkt.factor(kkt_block, P, A, dyn.sigma, rho_vec,
+                                   build_pair=static.kkt_refine_steps > 0)
+        # the explicit-inverse apply is plain-ADMM-only (kkt.dense_factor)
+        return kkt_ops.dense_factor(P, A, dyn.sigma, rho_vec, not accel_on)
 
-    def kkt_solve(kkt, rho_vec, r1, r2):
+    def kkt_solve(kkt, rho_vec, r1, r2, refine_on):
+        steps = static.kkt_refine_steps if (refine_on or not refine_gated) else 0
         if use_bspace:
-            return blockkkt.solve_blockspace(kkt_block, kkt, rho_vec, r1, r2)
+            return blockkkt.solve_blockspace(kkt_block, kkt, rho_vec, r1, r2, steps)
         if use_block:
-            return blockkkt.solve(kkt_block, kkt, A, rho_vec, r1, r2)
-        return kkt_ops.dense_solve(kkt, A, rho_vec, r1, r2)
+            return blockkkt.solve(kkt_block, kkt, P, A, dyn.sigma, rho_vec, r1, r2,
+                                  steps)
+        return kkt_ops.dense_solve(kkt, P, A, dyn.sigma, rho_vec, r1, r2, steps)
 
     kkt = kkt_setup(rho_vec)
 
-    def admm_x_w(w, s, kkt, rho_vec):
+    def admm_x_w(w, s, kkt, rho_vec, refine_on):
         """admm_x! then admm_w! (solver.jl:32-65); the x half of w lives in
         block space when ``use_bspace`` (q rides along as ``qx``)."""
         r1 = dyn.sigma * w[:nx] - qx
         r2 = b - 2.0 * s + w[nx:]
-        xt, nu = kkt_solve(kkt, rho_vec, r1, r2)
+        xt, nu = kkt_solve(kkt, rho_vec, r1, r2, refine_on)
         s_tl = 2.0 * s - w[nx:] - nu / rho_vec
         w1 = w[:nx] + dyn.alpha * (xt - w[:nx])
         w2 = w[nx:] + dyn.alpha * (s_tl - s)
@@ -226,10 +361,18 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
         c.projections += 1
         return projections.project(v, cones)
 
+    def host(c: _Loop, t):
+        """A device tensor's values on the host: one wait."""
+        c.syncs += 1
+        return t.tolist()
+
     # initial half-step so iterates agree with standard ADMM (solver.jl:125-138)
-    w0 = admm_x_w(torch.cat([x_to_block(x), s0v + mu / rho_vec]), s0v, kkt, rho_vec)
+    refine_on0 = not refine_gated
+    w0 = admm_x_w(torch.cat([x_to_block(x), s0v + mu / rho_vec]), s0v, kkt, rho_vec,
+                  refine_on0)
     big = torch.full((), float("inf"), dtype=dtype, device=device)
     zero = torch.zeros((), dtype=dtype, device=device)
+    izero = torch.zeros((), dtype=torch.int32, device=device)
     c = _Loop(
         w=w0, w_prev=w0, s=s0v, rho=rho, rho_vec=rho_vec, kkt=kkt, cost=big,
         res=res_ops.ResInfo(big, big, zero, zero),
@@ -241,27 +384,46 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
         chk_best=big, rho_log=rho_log,
         hist=(torch.zeros((static.res_hist, 6), dtype=dtype, device=device)
               if static.res_hist > 0 else None),
+        aa=(accel.init_accel(nx + m, static.accel_mem, dtype, device)
+            if accel_on else None),
+        redo=torch.zeros((), dtype=torch.bool, device=device),
+        due_age=izero, ref_stall=izero, ref_best=big, refine_on=refine_on0,
     )
+    redo_reader = _FlagReader(device)
+    plain_reader = _FlagReader(device)      # this pass did not accelerate
+
+    def waits(c: _Loop) -> int:
+        return c.syncs + redo_reader.waits + plain_reader.waits
 
     # ------------------------------------------------------------------
     # periodic work
     # ------------------------------------------------------------------
+    def residuals_rt(c: _Loop, x_k, mu_k, scaled: bool):
+        """(rp, rd, mp, md), compensated once the refine latch is on."""
+        comp = compensated_res and c.refine_on
+        if comp and use_bspace_res:
+            return bspace_comp_res(c, x_k, c.s, mu_k, scaled)
+        kw = dict(ignore_scaling=not scaled, compensated=comp)
+        rp, rd = res_ops.calculate_residuals(P, A, q, b, x_k, c.s, mu_k, sm, **kw)
+        mp, md = res_ops.max_res_component_norm(P, A, q, b, x_k, c.s, mu_k, sm, **kw)
+        return rp, rd, mp, md
+
     def adapt_rho(c: _Loop):
         """reference: solver.jl:242-282, parameters.jl:53-92"""
         mu_k = recover_mu(c.w_prev, c.s, c.rho_vec)
         x_k = x_from_block(c.w_prev[:nx])
-        rp, rd = res_ops.calculate_residuals(P, A, q, b, x_k, c.s, mu_k, sm,
-                                             ignore_scaling=True)
-        mp, md = res_ops.max_res_component_norm(P, A, q, b, x_k, c.s, mu_k, sm,
-                                                ignore_scaling=True)
+        rp, rd, mp, md = residuals_rt(c, x_k, mu_k, scaled=False)
         rp = rp / (mp + 1e-10)
         rd = rd / (md + 1e-10)
         new_rho = torch.clamp(c.rho * torch.sqrt(rp / (rd + 1e-10)),
                               dyn.rho_min, dyn.rho_max)
-        changed = (new_rho > dyn.adaptive_rho_tolerance * c.rho) | (
-            new_rho < c.rho / dyn.adaptive_rho_tolerance)
-        if not bool(changed):                       # host sync: refactor?
-            return
+        # a forced update (a stall trip) bypasses the deadband: the update
+        # re-expresses w and restarts the accelerator, an operator reset
+        if not c.rho_force:
+            changed = (new_rho > dyn.adaptive_rho_tolerance * c.rho) | (
+                new_rho < c.rho / dyn.adaptive_rho_tolerance)
+            if not host(c, changed):               # refactor?
+                return
         c.rho_vec = _make_rho_vec(new_rho, rho_class, dyn, rho_row_scale)
         c.kkt = kkt_setup(c.rho_vec)
         # re-express w in the new scaling (solver.jl:278)
@@ -269,27 +431,55 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
         c.n_rho_adapt += 1
         c.rho_log[min(c.n_rho_adapt, RHO_LOG_LEN - 1)] = new_rho
         c.rho = new_rho
+        if accel_on:
+            c.aa = accel.restart(c.aa)
 
     def check_termination(c: _Loop):
-        """reference: solver.jl:303-321"""
+        """reference: solver.jl:303-321, with the refine latch and the
+        accelerator's activation and stall toggle (cosmo_tpu.solver)"""
         mu_k = recover_mu(c.w_prev, c.s, c.rho_vec)
         x_k = x_from_block(c.w_prev[:nx])
-        info = res_ops.result_info(P, A, q, b, x_k, c.s, mu_k, sm)
+        info = res_ops.ResInfo(*residuals_rt(c, x_k, mu_k, scaled=True))
         cost = res_ops.calculate_cost(P, q, x_k, sm.cinv)
-        conv = res_ops.has_converged(info, dyn.eps_abs, dyn.eps_rel)
+        conv_plain = res_ops.has_converged(info, dyn.eps_abs, dyn.eps_rel)
+        # never SOLVED off an uncompensated measurement: a plain-converged
+        # solve latches this check and the next one confirms compensated
+        conv = conv_plain if (c.refine_on or not refine_gated) else torch.zeros_like(
+            conv_plain)
         if static.check_obj_true:
             conv = conv & ((dyn.obj_true - cost).abs() <= dyn.obj_true_tol)
         c.cost, c.res = cost, info
+        rel = torch.maximum(info.r_prim / (info.max_norm_prim + 1e-10),
+                            info.r_dual / (info.max_norm_dual + 1e-10))
+        trip = torch.zeros_like(conv)
+        if refine_gated and not c.refine_on:
+            # one-way latch; the stall fallback covers problems whose
+            # plain-f32 floor sits above the switch, but only near it (a
+            # transient plateau far above is ordinary ADMM dynamics), and
+            # the last resort after 16 checks covers extreme-kappa floors
+            stall = torch.where(rel < 0.95 * c.ref_best, torch.zeros_like(c.ref_stall),
+                                c.ref_stall + 1)
+            near_switch = rel < REFINE_NEAR_SWITCH * dyn.kkt_refine_switch
+            trip = ((rel < dyn.kkt_refine_switch) | conv_plain
+                    | ((stall >= REFINE_STALL_CHECKS) & near_switch)
+                    | (stall >= REFINE_STALL_LAST_RESORT))
+            c.ref_stall = stall
+            c.ref_best = torch.minimum(c.ref_best, rel)
         if static.res_hist > 0:
             # residual-history ring: (iter, cost, r_prim, r_dual, rho, refine
-            # latch — always on without the f32 refinement)
+            # latch as of the end of this check)
             row = torch.stack([
-                torch.tensor(float(c.it), dtype=dtype, device=device), cost,
-                info.r_prim, info.r_dual, c.rho, torch.ones_like(cost),
+                torch.full((), float(c.it), dtype=dtype, device=device), cost,
+                info.r_prim, info.r_dual, c.rho,
+                (trip | c.refine_on).to(dtype),
             ])
             c.hist[c.hist_n % static.res_hist] = row
             c.hist_n += 1
-        unsolved, converged = torch.stack([cost.abs() > 1e20, conv]).tolist()
+        fire = torch.zeros_like(conv)
+        if accel_on:
+            fire = _accel_checks(c, info)
+        unsolved, converged, tripped, fired = host(
+            c, torch.stack([cost.abs() > 1e20, conv, trip, fire]))
         if static.verbose:
             print(f"{c.it}\t{cost.item():.4e}\t{info.r_prim.item():.4e}\t"
                   f"{info.r_dual.item():.4e}\t{c.rho.item():.4e}")
@@ -297,6 +487,66 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
             c.status = results.UNSOLVED
         if c.status == results.UNDETERMINED and converged:
             c.status = results.SOLVED
+        if tripped:
+            c.refine_on, c.refine_iter = True, c.it
+            c.refine_syncs = waits(c)
+            # the accelerator's secant history spans the unrefined operator,
+            # whose fixed point differs by the plain-f32 KKT forward error:
+            # restart it at the switch
+            if accel_on:
+                c.aa = accel.restart(c.aa)
+            # a marker for profiles that split plain from refined iterations
+            with torch.profiler.record_function("cosmo_tpu_torch.refine_latch"):
+                pass
+        if fired:
+            c.rho_force, c.n_forced = True, c.n_forced + 1
+
+    def _accel_checks(c: _Loop, info):
+        """The accelerator's accuracy activation and stall toggle at a
+        termination check, on the device (cosmo_tpu.solver
+        check_termination). Returns whether a forced rho update fires."""
+        aa = c.aa
+        if static.accel_activation == "accuracy":
+            tol = dyn.accel_activation_accuracy
+            near = (info.r_prim < tol + tol * info.max_norm_prim) & (
+                info.r_dual < tol + tol * info.max_norm_dual)
+            aa = dataclasses.replace(aa, active=(aa.active | near) & ~aa.disabled)
+        fire = torch.zeros_like(aa.active)
+        if static.accel_stall_checks > 0:
+            # count checks with < 5% improvement of the normalized score; a
+            # trip flips the suspension; a trip far above the best seen is
+            # a strike, and two strikes kill the accelerator for good
+            score = info.r_prim / (info.max_norm_prim + 1e-10) + info.r_dual / (
+                info.max_norm_dual + 1e-10)
+            improved = score < 0.95 * aa.best_score
+            counting = aa.active | aa.disabled
+            stall = torch.where(improved, torch.zeros_like(aa.stall_checks),
+                                aa.stall_checks + counting.to(torch.int32))
+            trip = stall >= static.accel_stall_checks
+            strike = trip & ~aa.disabled & (score > AA_STRIKE_FACTOR * aa.best_score)
+            n_trips = aa.n_trips + strike.to(torch.int32)
+            dead = n_trips >= AA_STRIKE_KILL
+            # never re-enable a suspended accelerator while the residuals
+            # sit far above the best seen
+            trip = trip & (~aa.disabled | (score <= AA_REARM_FACTOR * aa.best_score)) & ~dead
+            aa = dataclasses.replace(
+                aa,
+                best_score=torch.minimum(aa.best_score, score),
+                stall_checks=torch.where(trip, torch.zeros_like(stall), stall),
+                disabled=(aa.disabled ^ trip) | dead,
+                active=aa.active & ~trip & ~dead,
+                n_trips=n_trips,
+                count=torch.where(trip, torch.zeros_like(aa.count), aa.count),
+                have_last=aa.have_last & ~trip,
+            )
+            if static.adaptive_rho and c.n_forced < FORCED_RHO_BUDGET:
+                # only genuinely far from termination (near the tolerance
+                # the forced reset's bump keeps the solve hovering)
+                far = (info.r_prim > 10.0 * (dyn.eps_abs + dyn.eps_rel * info.max_norm_prim)) | (
+                    info.r_dual > 10.0 * (dyn.eps_abs + dyn.eps_rel * info.max_norm_dual))
+                fire = trip & far
+        c.aa = aa
+        return fire
 
     def shadow_step(c: _Loop):
         """One plain ADMM step of the certificate shadow trajectory; the
@@ -305,7 +555,7 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
         mu_sh = c.rho_vec * (c.w_sh[nx:] - s_sh)
         if c.dy_age == 0:
             c.dy, c.dx = mu_sh, c.w_sh[:nx]
-        c.w_sh = admm_x_w(c.w_sh, s_sh, c.kkt, c.rho_vec)
+        c.w_sh = admm_x_w(c.w_sh, s_sh, c.kkt, c.rho_vec, c.refine_on)
         c.mu_sh = mu_sh
         c.dy_age += 1
 
@@ -334,7 +584,7 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
         stagnant = stag_score & near
         c.cost = torch.where(prim_inf, big, c.cost)
         c.cost = torch.where(dual_inf & ~prim_inf, -big, c.cost)
-        p_inf, d_inf, stag = torch.stack([prim_inf, dual_inf, stagnant]).tolist()
+        p_inf, d_inf, stag = host(c, torch.stack([prim_inf, dual_inf, stagnant]))
         if c.status == results.UNDETERMINED and p_inf:
             c.status = results.PRIMAL_INFEASIBLE
         if c.status == results.UNDETERMINED and d_inf:
@@ -346,44 +596,116 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
         c.dy, c.dx, c.gx, c.gy = dy, dx, x_now, mu_now
         c.infeas_due, c.dy_age = False, -1
 
+    def safeguard(c: _Loop):
+        """acceleration_post (accelerator_interface.jl:85-114) as value
+        selections: a declined candidate rolls w back to the last genuine
+        ADMM output and sets ``redo``, so the next pass replays the step as
+        plain ADMM. Besides the per-step growth bound, the divergence anchor
+        declines a candidate far above the best ||f|| seen."""
+        aa = c.aa
+        nrm_f = torch.linalg.vector_norm(aa.f_last)
+        nrm_f_acc = torch.linalg.vector_norm(c.w_prev - c.w)
+        best = torch.where(aa.success, torch.minimum(aa.best_nrm_f, nrm_f),
+                           aa.best_nrm_f)
+        bad = aa.success & ((nrm_f_acc > dyn.safeguard_tol * nrm_f)
+                            | (nrm_f_acc > dyn.safeguard_anchor * best))
+        c.w = torch.where(bad, aa.g_last, c.w)
+        c.aa = dataclasses.replace(aa, best_nrm_f=best, success=aa.success & ~bad,
+                                   n_declined=aa.n_declined + bad.to(torch.int32))
+        c.redo = bad
+        redo_reader.post(bad)
+
+    def accelerate_pre(c: _Loop):
+        """acceleration_pre (accelerator_interface.jl:58-75) on the device:
+        the activation, then the history update and the candidate, gated
+        off on a redo pass and, for the candidate, once a deferred rho
+        update has starved a whole memory window."""
+        aa = c.aa
+        # this pass's iteration number: the previous one on a redo pass
+        it_d = (c.it + 1) - c.redo.to(torch.int32)
+        if static.accel_activation == "immediate":
+            aa = dataclasses.replace(aa, active=(aa.active | (it_d >= 2)) & ~aa.disabled)
+        elif static.accel_activation == "iter":
+            aa = dataclasses.replace(
+                aa, active=(aa.active | (it_d >= dyn.accel_activation_iter)) & ~aa.disabled)
+        starved = c.due_age >= static.accel_mem
+        gate_upd = aa.active & ~c.redo
+        gate_acc = gate_upd & ~starved
+        aa = accel.update(aa, c.w, c.w_prev, static.accel_memory, gate=gate_upd)
+        c.w, c.aa = accel.accelerate(aa, c.w, static.accel_type,
+                                     static.accel_regularizer, gate=gate_acc)
+
     # ------------------------------------------------------------------
     # main loop (solver.jl:140-165)
     # ------------------------------------------------------------------
     max_iter = int(dyn.max_iter)
     interval = int(dyn.adaptive_rho_interval)
     interval = interval if interval > 0 else 40
-    while c.status == results.UNDETERMINED and c.it < max_iter:
-        c.it += 1
-        it = c.it
+    while c.status == results.UNDETERMINED:
+        # a declined step always gets its plain replay before the loop can
+        # end, so the result is never a rejected candidate
+        if c.it + c.sg_iter >= max_iter and not (guarded and redo_reader.read()):
+            break
+        if accel_on:
+            accelerate_pre(c)
+            deferred_ok = ~c.aa.success          # a plain iteration (device)
+            if static.adaptive_rho:
+                plain_reader.post(deferred_ok)
+            pending = c.rho_due or c.rho_force
+            c.due_age = torch.where(deferred_ok, torch.zeros_like(c.due_age),
+                                    c.due_age + int(pending))
+
+        # certificate shadow trajectory: forks from a plain-operator iterate
+        # (the last genuine ADMM output when this pass accelerated)
         if static.infeas_enabled and c.infeas_due:
-            if c.dy_age < 0:        # arm: fork the shadow from the iterate
-                c.w_sh, c.dy_age = c.w, 0
+            if c.dy_age < 0:
+                c.w_sh = (torch.where(c.aa.success, c.aa.g_last, c.w)
+                          if accel_on else c.w)
+                c.dy_age = 0
             shadow_step(c)
 
         c.w_prev = c.w
         c.s = project(c, c.w[nx:])
 
+        # a redo pass repeats the declined step and counts as a
+        # safeguarding iteration (accelerator_interface.jl:96-109)
+        if guarded and redo_reader.read():
+            c.sg_iter += 1
+        else:
+            c.it += 1
+        it = c.it
+
         if static.adaptive_rho:
             c.rho_due = c.rho_due or (
                 it % interval == 0
                 and c.n_rho_adapt < static.adaptive_rho_max_adaptions)
-            # a long armed certificate window holds the update pending
+            # a long armed certificate window holds the update pending;
+            # deferred updates run on plain (non-accelerated) iterations only
             win_open = static.infeas_enabled and c.infeas_due and c.inf_win > 1
-            if c.rho_due and not win_open:
+            if ((c.rho_due or c.rho_force) and not win_open
+                    and (not accel_on or plain_reader.read())):
                 adapt_rho(c)
                 # the shadow's operator changed: its window restarts
-                c.rho_due, c.dy_age = False, -1
+                c.rho_due, c.rho_force, c.dy_age = False, False, -1
 
-        c.w = admm_x_w(c.w, c.s, c.kkt, c.rho_vec)
+        c.w = admm_x_w(c.w, c.s, c.kkt, c.rho_vec, c.refine_on)
+        if guarded:
+            safeguard(c)
 
-        if it % static.check_termination == 0 or it == 1:
+        # checks skip a pass whose candidate was just declined
+        if ((it % static.check_termination == 0 or it == 1)
+                and not (guarded and redo_reader.read())):
             check_termination(c)
 
         if static.infeas_enabled:
             do_check = c.infeas_due and c.dy_age >= c.inf_win + 1
-            c.infeas_due = c.infeas_due or it % static.check_infeasibility == 0
+            c.infeas_due = c.infeas_due or (
+                it % static.check_infeasibility == 0
+                and not (guarded and redo_reader.read()))
             if do_check:
                 check_infeasibility(c)
+        if on_iter is not None:
+            on_iter(it, c.refine_on)
 
     # ------------------------------------------------------------------
     # post-processing (solver.jl:167-201)
@@ -391,7 +713,7 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
     mu_final = recover_mu(c.w_prev, c.s, c.rho_vec)
     x_final = x_from_block(c.w_prev[:nx])
     if c.status == results.UNDETERMINED:
-        c.res = res_ops.result_info(P, A, q, b, x_final, c.s, mu_final, sm)
+        c.res = res_ops.ResInfo(*residuals_rt(c, x_final, mu_final, scaled=True))
         c.status = results.MAX_ITER_REACHED
     # a diverged or non-factorizable solve surfaces as Unsolved
     finite = bool(torch.isfinite(x_final).all() & torch.isfinite(c.s).all())
@@ -400,8 +722,9 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
         c.status = results.UNSOLVED
 
     x_out, mu_out, s_out = scaling_ops.unscale_variables(x_final, mu_final, c.s, sm)
-    scalars = torch.stack([c.cost, c.res.r_prim, c.res.r_dual,
-                           c.res.max_norm_prim, c.res.max_norm_dual]).tolist()
+    n_acc = c.aa.n_accelerated if accel_on else torch.zeros((), device=device)
+    scalars = torch.stack([c.cost, c.res.r_prim, c.res.r_dual, c.res.max_norm_prim,
+                           c.res.max_norm_dual, n_acc.to(dtype)]).tolist()
     out = dict(
         x=x_out.cpu().numpy(),
         y=(-mu_out).cpu().numpy(),
@@ -409,7 +732,7 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
         cost=scalars[0],
         status=c.status,
         iter=c.it,
-        safeguarding_iter=0,
+        safeguarding_iter=c.sg_iter,
         r_prim=scalars[1],
         r_dual=scalars[2],
         max_norm_prim=scalars[3],
@@ -417,8 +740,11 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
         n_rho_adapt=c.n_rho_adapt,
         kkt_solver_iters=0,
         rho_log=c.rho_log.cpu().numpy(),
-        n_accelerated=0,
+        n_accelerated=int(scalars[5]),
         projections=c.projections,
+        refine_iter=c.refine_iter,
+        refine_syncs=c.refine_syncs,
+        syncs=waits(c),
     )
     if static.res_hist > 0:
         out["res_hist"] = c.hist.cpu().numpy()

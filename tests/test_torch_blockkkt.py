@@ -105,7 +105,8 @@ def test_factor_and_solves_match_reference(name):
     rho, r1, r2 = torch.as_tensor(d["rho"]), torch.as_tensor(d["r1"]), torch.as_tensor(d["r2"])
     jx, jnu = jbk.solve(d["jm"], d["js"], d["Pj"], d["Aj"], d["sigma"],
                         jnp.asarray(d["rho"]), jnp.asarray(d["r1"]), jnp.asarray(d["r2"]))
-    tx, tnu = tbk.solve(d["tm"], d["ts"], d["At"], rho, r1, r2)
+    tx, tnu = tbk.solve(d["tm"], d["ts"], d["Pt"], d["At"], torch.tensor(d["sigma"], dtype=F64),
+                        rho, r1, r2)
     _close(jx, tx)
     _close(jnu, tnu)
     # the block-space solve on the same r1 in block layout
@@ -148,8 +149,9 @@ def test_unfused_solve_without_block_dense_A():
     assert not tbk.supports_blockspace(d["tm"])
     jx, jnu = jbk.solve(d["jm"], d["js"], d["Pj"], d["Aj"], d["sigma"],
                         jnp.asarray(d["rho"]), jnp.asarray(d["r1"]), jnp.asarray(d["r2"]))
-    tx, tnu = tbk.solve(d["tm"], d["ts"], d["At"], torch.as_tensor(d["rho"]),
-                        torch.as_tensor(d["r1"]), torch.as_tensor(d["r2"]))
+    tx, tnu = tbk.solve(d["tm"], d["ts"], d["Pt"], d["At"], torch.tensor(d["sigma"], dtype=F64),
+                        torch.as_tensor(d["rho"]), torch.as_tensor(d["r1"]),
+                        torch.as_tensor(d["r2"]))
     _close(jx, tx)
     _close(jnu, tnu)
 

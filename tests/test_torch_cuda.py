@@ -130,3 +130,68 @@ def test_decomposed_solve_on_card(cuda, monkeypatch, rr):
     launches = (J.psd_project_pallas.launches, R.psd_project_rr.launches)
     n = model.last_solve["projections"]
     assert launches == ((0, n) if rr else (n, 0))
+
+
+@pytest.mark.cuda
+def test_df32_error_free_transforms_exact_on_card(cuda):
+    """two_sum and two_prod stay error-free on the card (each op its own
+    kernel, no fused multiply-add): s + e and p + e equal the float64 sum
+    and product of the float32 inputs exactly."""
+    from cosmo_tpu_torch.ops import df32
+
+    rng = np.random.default_rng(0)
+    a64 = rng.standard_normal(4096) * np.exp(rng.uniform(-20, 20, 4096))
+    b64 = rng.standard_normal(4096) * np.exp(rng.uniform(-20, 20, 4096))
+    a = torch.as_tensor(a64, dtype=torch.float32, device=cuda)
+    b = torch.as_tensor(b64, dtype=torch.float32, device=cuda)
+    af, bf = a.double(), b.double()
+    s, e = df32.two_sum(a, b)
+    assert torch.equal(s.double() + e.double(), af + bf)
+    p, e = df32.two_prod(a, b)
+    assert torch.equal(p.double() + e.double(), af * bf)
+
+
+@pytest.mark.cuda
+def test_anderson_step_never_waits_for_the_card(cuda):
+    """One Anderson step (history update, candidate, rank test) on the card
+    under torch.cuda.set_sync_debug_mode("error"), which raises on any
+    synchronizing call, gives the CPU's result."""
+    from cosmo_tpu_torch import accel
+
+    d, mem = 2000, 15
+    xs_np = np.random.default_rng(1).standard_normal((6, d))
+    outs = []
+    for device in ("cpu", cuda):
+        aa = accel.init_accel(d, mem, torch.float64, device)
+        aa.active = torch.ones((), dtype=torch.bool, device=device)
+        xs = torch.as_tensor(xs_np, device=device)
+        gate = torch.ones((), dtype=torch.bool, device=device)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for t in range(5):
+                g = 0.5 * xs[t] + 0.1 * xs[t + 1]
+                aa = accel.update(aa, g, xs[t], gate=gate)
+                w, aa = accel.accelerate(aa, g, gate=gate)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        outs.append((w.cpu(), bool(aa.success), int(aa.count)))
+    (w0, ok0, n0), (w1, ok1, n1) = outs
+    assert ok0 and ok1 and n0 == n1 == 4
+    assert torch.allclose(w0, w1, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_default_settings_decomposed_float32_on_card(cuda):
+    """A small decomposed banded SDP at the default settings in float32 on
+    the card: Anderson, the refine latch and the df32 block KKT through the
+    Jacobi kernel; Solved, the latch tripped, every projection launched
+    the kernel."""
+    J.psd_project_pallas.launches = 0
+    model = pt.Model(pt.Settings(decompose=True, eigh_backend="pallas"))
+    res = model.set(*problems.banded_sdp(200, 8, seed=0, sparse=True)[:5]).optimize()
+    info = model.last_solve
+    assert res.status == "Solved"
+    assert info["dtype"] == torch.float32 and info["kkt_refine_steps"] == 1
+    assert info["refine_iter"] > 0 and info["n_accelerated"] > 0
+    assert res.info.res_history[-1, 5] == 1.0
+    assert J.psd_project_pallas.launches == info["projections"] > 0

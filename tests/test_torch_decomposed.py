@@ -144,8 +144,14 @@ def test_coupled_sparse_problem_raises_coo_cg():
 
 def test_float32_decomposed_needs_the_df32_endgame():
     """In float32 the overlap rows make the auto kkt_refine_steps 1 (the
-    reference's refine_hint): the df32 endgame is not ported and raises."""
+    reference's refine_hint): the plain decomposed solve latches into the
+    df32 endgame — the refined block KKT and the compensated residuals —
+    and solves as the reference does, within the float32 regime of 1e-4."""
     gen, _ = PROBLEMS["banded200_sparse"]
-    mt = pt.Model(pt.Settings(**dict(DECOMPOSED, dtype=np.float32)), device="cpu")
-    with pytest.raises(NotImplementedError, match="df32"):
-        mt.set(*gen(tprob)).optimize()
+    mj, mt = _models(gen, dict(DECOMPOSED, dtype=np.float32))
+    rj, rt = mj.optimize(), mt.optimize()
+    assert rj.status == rt.status == "Solved"
+    assert abs(rj.obj_val - rt.obj_val) <= 1e-4 * abs(rj.obj_val)
+    info = mt.last_solve
+    assert info["kkt_solver"] == "blockdiag" and info["kkt_refine_steps"] == 1
+    assert 0 < info["refine_iter"] <= rt.iter and rt.info.res_history[-1, 5] == 1.0

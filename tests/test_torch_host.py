@@ -60,7 +60,8 @@ def test_split_settings_matches(dtype, refine_hint):
     s = dict(accelerator=None, eps_abs=1e-6, adaptive_rho_tolerance=2.0,
              check_infeasibility=30, obj_true=1.5)
     js, jd = jset.split_settings(ct.Settings(**s), 9, 4, dtype, refine_hint=refine_hint)
-    ts, td = tset.split_settings(pt.Settings(**s), 9, 4, dtype, refine_hint=refine_hint)
+    ts, td = tset.split_settings(pt.Settings(**s), 9, 4, dtype, refine_hint=refine_hint,
+                                 device="cpu")
     assert js._fields == ts._fields
     assert tuple(js) == tuple(ts)
     assert jd._fields == td._fields
@@ -153,7 +154,8 @@ SLICE2_MODULES = (
     "cosmo_tpu_torch.chordal.merging", "cosmo_tpu_torch.chordal.transform",
     "cosmo_tpu_torch.chordal.decompose", "cosmo_tpu_torch.native",
     "cosmo_tpu_torch.ops.blockkkt", "cosmo_tpu_torch.ops.cuda_build",
-    "cosmo_tpu_torch.ops.jacobi_proj_rr",
+    "cosmo_tpu_torch.ops.jacobi_proj_rr", "cosmo_tpu_torch.accel",
+    "cosmo_tpu_torch.ops.df32",
 )
 
 

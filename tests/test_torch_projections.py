@@ -162,6 +162,22 @@ def test_compile_cones_without_device_resolves_for_cuda():
                                     device="cpu") == "xla"
 
 
+def test_split_settings_without_device_targets_cuda():
+    """With no device named, the dynamic settings go to ``cuda``, the
+    solve's default device, as compile_cones resolves for it: without CUDA
+    that fails; ``device="cpu"`` puts them on the CPU."""
+    from cosmo_tpu_torch import settings as tset
+
+    if torch.cuda.is_available():
+        _, dyn = tset.split_settings(pt.Settings(), 9, 4, np.float32)
+        assert all(v.device.type == "cuda" for v in dyn)
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            tset.split_settings(pt.Settings(), 9, 4, np.float32)
+    _, dyn = tset.split_settings(pt.Settings(), 9, 4, np.float32, device="cpu")
+    assert all(v.device.type == "cpu" for v in dyn)
+
+
 @pytest.mark.parametrize("sets,backend", [
     ([pt.ExponentialCone()], "xla"), ([pt.PowerCone(0.5)], "xla"),
     ([pt.PsdConeTriangleComplex(4)], "xla"), ([pt.PsdConeTriangleColPad(9)], "xla"),

@@ -1,6 +1,7 @@
 """The first slice of cosmo_tpu_torch end to end: Model.set/assemble ->
 Model.optimize against cosmo_tpu, on the CPU, with plain ADMM
-(``accelerator=None``) and no chordal decomposition.
+(``accelerator=None``) and no chordal decomposition, and the options the
+fourth slice ported (Anderson acceleration, the compensated refinement).
 
 Both packages run the same algorithm in float64, so their trajectories
 agree to rounding; results are compared within the solve tolerance
@@ -161,21 +162,40 @@ def _with(**kw):
     return lambda: pt.Settings(**dict(PLAIN, **kw))
 
 
+@pytest.mark.parametrize("settings,build,tol", [
+    (dict(decompose=False), _qp, TOL),                            # Anderson
+    (dict(PLAIN, dtype=np.float32), _min_eig, 1e-4),              # auto refine
+    (dict(PLAIN, kkt_refine_steps=1), _qp, TOL),
+], ids=["anderson", "auto_refine", "refine"])
+def test_default_machinery_matches_reference(settings, build, tol):
+    """Options that raised before the fourth slice: Anderson acceleration
+    (the default accelerator), the auto kkt_refine_steps of a float32
+    problem with a ZeroSet row, and an explicit refinement step in float64.
+    float32 is held to the reference's objective within its 1e-4 regime."""
+    _, rj, mt, rt = _solve_both(build, settings)
+    assert rj.status == rt.status == "Solved"
+    if settings.get("dtype") == np.float32:
+        assert mt.last_solve["kkt_refine_steps"] == 1
+        assert abs(rt.obj_val - rj.obj_val) <= tol * max(1.0, abs(rj.obj_val))
+    else:
+        _assert_same(rj, rt, tol)
+    if settings.get("accelerator", "anderson") is not None:
+        assert mt.last_solve["n_accelerated"] > 0
+        assert rt.safeguarding_iter == rj.safeguarding_iter
+
+
 @pytest.mark.parametrize("make_settings,build", [
-    (lambda: pt.Settings(decompose=False), _qp),                 # Anderson
     (_with(kkt_solver="cg"), _qp),
     (_with(kkt_solver=pt.CustomKKTSolver(setup=len, solve=len)), _qp),
     # sparse, coupled beyond kkt_block_max and no Bde layout: Coo + CG
     (_with(kkt_block_max=1), _lp),
-    (_with(dtype=np.float32), _min_eig),                         # auto refine
-    (_with(kkt_refine_steps=1), _qp),
     (_with(mixed_precision=True), _qp),
     (_with(eigh_backend="amortized"), _min_eig),
     (_with(eigh_backend="jacobi_mm"), _min_eig),
     (_with(time_limit=5.0), _qp),
     (_with(adaptive_rho_interval=0), _qp),
-], ids=["anderson", "cg", "custom_kkt", "coo", "auto_refine", "refine",
-        "mixed_precision", "amortized", "jacobi_mm", "time_limit", "auto_rho_interval"])
+], ids=["cg", "custom_kkt", "coo", "mixed_precision", "amortized", "jacobi_mm",
+        "time_limit", "auto_rho_interval"])
 def test_unported_options_raise(make_settings, build):
     model = build(pt, pt.Model(make_settings(), device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -14,9 +14,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    body instantiation (``jacobi_proj_regs``) has a stack frame or spills;
 3. kernel: holds the round-robin and the slot-rotation Jacobi projection
    kernels against their plain PyTorch versions on the card (float32 and
-   float64, k in {4, 6, ..., 16, 24, 32, 48}, B in {1, 512, 2498, 8540})
-   and times kernel, ``torch.linalg.eigh`` yardstick and, at k in {8, 16,
-   32, 48} and B <= 2498, the plain version with CUDA events;
+   float64, k in {4, 6, ..., 16, 24, 32, 48}, B in {1, 512, 2498, 8540},
+   and the maxcut path's k = 8 at B in {1729, 8540}); at k = 16 and the
+   maxcut shapes it times kernel, plain version and ``torch.linalg.eigh``
+   yardstick with CUDA events;
 4. slice: solves ``problems.block_sdp(512, 16, 512, seed=0)`` with CSR A
    through ``Model.optimize`` on the card with plain ADMM, in float64 and
    float32 (a first solve, then a second on the same model), against the
@@ -33,13 +34,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    of ``bench.py`` (``Settings(eps_abs=1e-5, eps_rel=1e-5, max_iter=20000,
    decompose=True)``, every other option at its default: Anderson
    acceleration, the f32 refine latch and the df32-compensated block KKT)
-   in float32 (the card's default), then float64, each a first solve and
-   then a second on the same model, against the known objective; checks
-   the block KKT, that every projection went through ``jacobi_proj``, and
-   in float32 that the refine latch tripped and Anderson accelerated. A
-   third float32 solve profiles 20 plain and 20 refined iterations
-   (``torch.profiler``) for the device operations an iteration, under
-   ``torch.cuda.set_sync_debug_mode("warn")``.
+   in float32 (the card's default), then float64, one first solve each,
+   against the known objective; checks the block KKT, that every
+   projection went through ``jacobi_proj``, and in float32 that the refine
+   latch tripped and Anderson accelerated. A second float32 solve profiles
+   20 plain and 20 refined iterations (``torch.profiler``) for the device
+   operations an iteration, under ``torch.cuda.set_sync_debug_mode("warn")``;
+7. maxcut: the decomposed maxcut SDP of ``bench.py``, float32, one first
+   solve each: ``problems.maxcut(2000, 4/2000, seed=0, sparse=True)`` at
+   ``_bench_maxcut_default``'s settings against the known objective, and
+   ``problems.maxcut(10000, 4/10000, seed=0, sparse=True)`` at
+   ``_bench_maxcut10k``'s (with its 600 s time limit), held to
+   lambda_min(diag(x) - L/4) >= -1e-3 (dense, float64, on the card). Checks
+   that the Jacobi kernel took exactly the dominant side-8 bucket, every
+   projection of it, the polar every other bucket, and that the shear (and
+   at 10k the colpad) layout is on the path; the 10k solve profiles 20
+   plain and 20 refined iterations for the device operations an iteration.
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -65,6 +75,15 @@ REF_BANDED = 26934.834386732622
 # bench.py _bench_northstar without its time limit; dtype None: float32 on
 # the card
 NORTHSTAR = dict(eps_abs=1e-5, eps_rel=1e-5, max_iter=20000, decompose=True)
+# cosmo_tpu on the CPU in float64: Model(Settings(eps_abs=1e-5, eps_rel=1e-5,
+# max_iter=20000, decompose=True, dtype=np.float64)).set(*problems.maxcut(
+# 2000, 4 / 2000, seed=0, sparse=True)[:5]).optimize() -> Solved, 3276
+# iterations
+REF_MAXCUT2000 = 1142.8673139897433
+# bench.py _bench_maxcut_default and _bench_maxcut10k
+MAXCUT_DEFAULT = dict(eps_abs=1e-5, eps_rel=1e-5, max_iter=20000, decompose=True,
+                      dtype=np.float32)
+MAXCUT10K = dict(MAXCUT_DEFAULT, time_limit=600.0)
 SWEEPS = 8                      # Settings.jacobi_sweeps default
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): float32 and
 # float64 outside the tensor cores, and HBM3 bandwidth
@@ -167,13 +186,18 @@ def _kernels():
             "jacobi_proj_rr": (R.jacobi_proj_rr_cuda, R.psd_project_jacobi_rr_plain)}
 
 
+# the maxcut path's kernel shapes (phase 7), timed beside the sweep
+MAXCUT_SHAPES = ((8, 1729), (8, 8540))
+
+
 def phase_kernel(device, ks=(4, 6, 8, 10, 12, 14, 16, 24, 32, 48),
                  Bs=(1, 512, 2498, 8540), dtypes=("float32", "float64"), reps=20,
-                 plain_ks=(8, 16, 32, 48), plain_max_B=2498):
-    """Each kernel vs its plain version at every shape; timings at each
-    shape (the plain version's only at ``plain_ks`` up to ``plain_max_B``;
-    the eigh yardstick once a shape, shared by both kernels, which also
-    share the bound: they do the same rotations). ``ms``, ``plain_ms`` and
+                 timed_k=16):
+    """Each kernel vs its plain version at every shape (k in ``ks`` by B in
+    ``Bs``, and ``MAXCUT_SHAPES``); timings of kernel, plain version and
+    eigh yardstick at k = ``timed_k`` and at ``MAXCUT_SHAPES`` (the
+    yardstick once a shape, shared by both kernels, which also share the
+    bound: they do the same rotations). ``ms``, ``plain_ms`` and
     ``library_ms`` are ``launch_ms``; ``device_ms`` is the kernel's time
     without the host's launch cost."""
     import torch
@@ -181,38 +205,40 @@ def phase_kernel(device, ks=(4, 6, 8, 10, 12, 14, 16, 24, 32, 48),
     from cosmo_tpu_torch.ops import eigh as E
 
     rows = []
+    shapes = dict.fromkeys([(k, B) for k in ks for B in Bs] + list(MAXCUT_SHAPES))
     for dtype_name in dtypes:
         dtype = getattr(torch, dtype_name)
-        for k in ks:
-            for B in Bs:
-                X = _stack(B, k, dtype, device, seed=1000 * k + B)
-                big = B * k * k > 512 * 16 * 16 * 8
-                library_ms = launch_ms(lambda: E.psd_project_eigh(X), 3 if big else reps)
-                bound_ms, bound_by = jacobi_bound_ms(B, k, dtype_name)
-                for name, (launch, plain) in _kernels().items():
-                    got = launch(X, SWEEPS)
-                    torch.cuda.synchronize()
-                    ref = plain(X, SWEEPS)
-                    err = (got - ref).abs().max().item()
-                    scale = X.abs().max().item()
-                    ok = bool(np.isfinite(err)) and err <= TOL[dtype_name] * scale
-                    row = dict(
-                        kernel=name, dtype=dtype_name, k=k, B=B, max_abs_err=err,
-                        max_abs_x=scale, tol_rel=TOL[dtype_name], ok=ok,
-                        ms=launch_ms(lambda: launch(X, SWEEPS), reps),
-                        device_ms=device_ms(lambda: launch(X, SWEEPS), reps),
-                        plain_ms=(launch_ms(lambda: plain(X, SWEEPS), 2 if big else 5)
-                                  if k in plain_ks and B <= plain_max_B else None),
-                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                    )
-                    rows.append(row)
-                    plain_s = ("-" if row["plain_ms"] is None
-                               else f"{row['plain_ms']:.3f}")
-                    log(f"[kernel] {name} {dtype_name} k={k:2d} B={B:5d} err={err:.3e} "
-                        f"(tol {TOL[dtype_name]:.0e}*{scale:.2f}) ms={row['ms']:.4f} "
-                        f"device={row['device_ms']:.4f} plain={plain_s} "
-                        f"eigh={library_ms:.3f} bound={bound_ms:.5f} ({bound_by}) "
-                        f"{'ok' if ok else 'FAIL'}")
+        for k, B in shapes:
+            X = _stack(B, k, dtype, device, seed=1000 * k + B)
+            big = B * k * k > 512 * 16 * 16 * 8
+            timed = k == timed_k or (k, B) in MAXCUT_SHAPES
+            library_ms = (launch_ms(lambda: E.psd_project_eigh(X), 3 if big else reps)
+                          if timed else None)
+            bound_ms, bound_by = jacobi_bound_ms(B, k, dtype_name)
+            for name, (launch, plain) in _kernels().items():
+                got = launch(X, SWEEPS)
+                torch.cuda.synchronize()
+                ref = plain(X, SWEEPS)
+                err = (got - ref).abs().max().item()
+                scale = X.abs().max().item()
+                ok = bool(np.isfinite(err)) and err <= TOL[dtype_name] * scale
+                row = dict(
+                    kernel=name, dtype=dtype_name, k=k, B=B, max_abs_err=err,
+                    max_abs_x=scale, tol_rel=TOL[dtype_name], ok=ok,
+                    ms=launch_ms(lambda: launch(X, SWEEPS), reps) if timed else None,
+                    device_ms=(device_ms(lambda: launch(X, SWEEPS), reps)
+                               if timed else None),
+                    plain_ms=(launch_ms(lambda: plain(X, SWEEPS), 2 if big else 5)
+                              if timed else None),
+                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                )
+                rows.append(row)
+                times = ("" if not timed else
+                         f" ms={row['ms']:.4f} device={row['device_ms']:.4f} plain="
+                         f"{row['plain_ms']:.3f} eigh={library_ms:.3f}")
+                log(f"[kernel] {name} {dtype_name} k={k:2d} B={B:5d} err={err:.3e} "
+                    f"(tol {TOL[dtype_name]:.0e}*{scale:.2f}){times} "
+                    f"bound={bound_ms:.5f} ({bound_by}) {'ok' if ok else 'FAIL'}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"a kernel disagrees with its plain version: {bad}")
@@ -231,14 +257,14 @@ def block_sdp_model(device, dtype, n_blocks=512, side=16, n=512, seed=0):
     return model.set(P, q, sp.csr_matrix(A), b, sets)
 
 
-def counted_optimize(model):
-    """model.optimize() with both kernels' launch counts set to 0 just
-    before and read just after; returns (result, {kernel: launches})."""
+def counted_optimize(model, on_iter=None):
+    """model.optimize(on_iter=...) with both kernels' launch counts set to 0
+    just before and read just after; returns (result, {kernel: launches})."""
     from cosmo_tpu_torch.ops import jacobi_proj as J
     from cosmo_tpu_torch.ops import jacobi_proj_rr as R
 
     J.psd_project_pallas.launches = R.psd_project_rr.launches = 0
-    res = model.optimize()
+    res = model.optimize(on_iter=on_iter)
     return res, {"jacobi_proj": J.psd_project_pallas.launches,
                  "jacobi_proj_rr": R.psd_project_rr.launches}
 
@@ -334,8 +360,9 @@ def phase_decomposed(device, smi):
 def phase_default(device, smi):
     """The decomposed banded SDP at the north-star settings: Anderson
     acceleration, the refine latch and the df32 block KKT, through the
-    Jacobi kernel. float32 then float64, each cold then warm; then a third
-    float32 solve with two profiled windows of iterations."""
+    Jacobi kernel. One first solve in float32 and one in float64; then a
+    second float32 solve with two profiled windows of iterations under the
+    sync debug mode "warn" (which slows it: its time is not reported)."""
     import warnings
 
     import torch
@@ -348,33 +375,31 @@ def phase_default(device, smi):
     for dtype, rel in ((None, 1e-4), (np.float64, 1e-6)):
         name = "float64" if dtype is not None else "float32"
         model = pt.Model(pt.Settings(**NORTHSTAR, dtype=dtype), device=device).set(*data)
-        for run in ("cold", "warm"):
-            res, counts = counted_optimize(model)
-            out[f"{name}_{run}"] = _check_default(model, res, counts, name, run, rel, smi)
-        if dtype is None:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                windows = IterationWindows(caught)
-                try:
-                    res = model.optimize(on_iter=windows)
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-            info = model.last_solve
-            flagged = [w for w in caught if "synchroniz" in str(w.message)]
-            latch = (len(caught) if windows.warned_at_latch is None
-                     else windows.warned_at_latch)
-            per = windows.close(res.iter)
-            out["float32_profiled"] = dict(
-                status=res.status, iter=res.iter, windows=per,
-                flagged_syncs=len(flagged), flagged_before_latch=latch,
-                syncs=info["syncs"])
-            log(f"[default] float32 profiled: {res.status}, {res.iter} iters; device "
-                f"operations an iteration {per}; torch-flagged synchronizing calls "
-                f"{len(flagged)} ({latch} before the latch), solver host waits "
-                f"{info['syncs']} [{smi}]")
-            if res.status != "Solved" or set(per) != {"plain", "refined"}:
-                raise AssertionError(f"default float32 profiled run: {res.status}, {per}")
+        res, counts = counted_optimize(model)
+        out[name] = _check_default(model, res, counts, name, "cold", rel, smi)
+        if dtype is not None:
+            continue
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            windows = IterationWindows(caught)
+            try:
+                res = model.optimize(on_iter=windows)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        flagged = [w for w in caught if "synchroniz" in str(w.message)]
+        latch = (len(caught) if windows.warned_at_latch is None
+                 else windows.warned_at_latch)
+        per = windows.close(res.iter)
+        out["float32_profiled"] = dict(
+            status=res.status, iter=res.iter, windows=per, flagged_syncs=len(flagged),
+            flagged_before_latch=latch, syncs=model.last_solve["syncs"])
+        log(f"[default] float32 profiled: {res.status}, {res.iter} iters; device "
+            f"operations an iteration {per}; torch-flagged synchronizing calls "
+            f"{len(flagged)} ({latch} before the latch), solver host waits "
+            f"{model.last_solve['syncs']} [{smi}]")
+        if res.status != "Solved" or set(per) != {"plain", "refined"}:
+            raise AssertionError(f"default float32 profiled run: {res.status}, {per}")
     return out
 
 
@@ -413,6 +438,112 @@ def _check_default(model, res, counts, name, run, rel, smi):
                 iter_per_s=ips, syncs=info["syncs"], refine_syncs=info["refine_syncs"],
                 host_waits_per_iter=waits,
                 launches=counts["jacobi_proj"], projections=info["projections"])
+
+
+def _maxcut_path(model, counts, label):
+    """Hold a maxcut solve to this slice's path: the Jacobi kernel on
+    exactly one bucket, of side 8 and the largest batch, on every
+    projection; the polar on every other bucket; the block KKT. Returns the
+    PSD buckets as (batch, side, layout, backend) and the block KKT's
+    buckets as (N, k, R) (R = 0: the COO applies instead of dense A)."""
+    info = model.last_solve
+    cones, kkt = model._dev_cache["cones"], model._dev_cache["kkt_block"]
+    psd = [(b.batch, b.side, b.fastpath, b.backend or cones.eigh_backend)
+           for b in cones.psd_buckets]
+    blocks = [(b.N, b.k, b.R) for b in kkt.buckets]
+    kernel = [p for p in psd if p[3] == "pallas"]
+    small = max((p for p in psd if p[1] <= 16), key=lambda p: p[0])
+    if (info["kkt_solver"] != "blockdiag" or kernel != [small] or small[1] != 8
+            or any(p[3] != "polar" for p in psd if p is not small)):
+        raise AssertionError(f"{label} left the main path: {psd}, {info['kkt_solver']}")
+    if not counts["jacobi_proj"] == info["projections"] > 0 or counts["jacobi_proj_rr"]:
+        raise AssertionError(f"{label}: {counts} kernel launches for "
+                             f"{info['projections']} projections")
+    return psd, blocks
+
+
+def slack_lambda_min(x, L, device):
+    """lambda_min of maxcut's dual slack diag(x) - L/4, formed densely in
+    float64 on ``device`` from the scipy Laplacian ``L``."""
+    import torch
+
+    n = L.shape[0]
+    Lc = L.tocoo()
+    S = torch.zeros((n, n), dtype=torch.float64, device=device)
+    S.index_put_((torch.as_tensor(Lc.row, device=device),
+                  torch.as_tensor(Lc.col, device=device)),
+                 torch.as_tensor(-Lc.data / 4.0, dtype=torch.float64, device=device),
+                 accumulate=True)
+    S.diagonal().add_(torch.as_tensor(x, dtype=torch.float64, device=device))
+    return torch.linalg.eigvalsh(S)[0].item()
+
+
+def phase_maxcut(device, smi):
+    """The decomposed maxcut SDP in float32, one first solve each:
+    maxcut-2000 at ``_bench_maxcut_default``'s settings against
+    ``REF_MAXCUT2000``, then maxcut-10k at ``_bench_maxcut10k``'s (the
+    literal north star of BASELINE.json) with 20 plain and 20 refined
+    iterations profiled, held to lambda_min(diag(x) - L/4) >= -1e-3."""
+    import cosmo_tpu_torch as pt
+    from cosmo_tpu_torch import problems
+    from cosmo_tpu_torch.profile_slice import IterationWindows, host_waits
+
+    out = {}
+    for n_nodes in (2000, 10000):
+        label = f"maxcut-{n_nodes}"
+        t0 = time.perf_counter()
+        P, q, A, b, sets, L = problems.maxcut(n_nodes, 4.0 / n_nodes, seed=0, sparse=True)
+        gen_s = time.perf_counter() - t0
+        settings = MAXCUT10K if n_nodes == 10000 else MAXCUT_DEFAULT
+        model = pt.Model(pt.Settings(**settings), device=device).set(P, q, A, b, sets)
+        windows = IterationWindows() if n_nodes == 10000 else None
+        res, counts = counted_optimize(model, on_iter=windows)
+        info, t = model.last_solve, res.times
+        psd, blocks = _maxcut_path(model, counts, label)
+        layouts = {p[2] for p in psd}
+        ips = res.iter / info["iter_time"]
+        row = dict(status=res.status, iter=res.iter, obj=res.obj_val,
+                   safeguarding_iter=res.safeguarding_iter,
+                   n_accelerated=info["n_accelerated"], refine_iter=info["refine_iter"],
+                   gen_s=gen_s, graph_s=t.graph_time, setup_s=t.setup_time,
+                   solve_s=info["iter_time"], post_s=t.post_time, iter_per_s=ips,
+                   host_waits_per_iter=host_waits(info, res.iter),
+                   launches=counts["jacobi_proj"], projections=info["projections"],
+                   psd_buckets=psd, kkt_buckets=blocks)
+        log(f"[maxcut] {label} float32: {res.status}, {res.iter} iters "
+            f"({res.safeguarding_iter} safeguarding), {info['n_accelerated']} accelerated, "
+            f"refine latch at iteration {info['refine_iter']}, obj {res.obj_val:.10f}, "
+            f"generated {gen_s:.2f} s, graph {t.graph_time:.3f} s, setup "
+            f"{t.setup_time:.3f} s, solve {info['iter_time']:.3f} s, {ips:.1f} iter/s, post "
+            f"{t.post_time:.3f} s, host waits an iteration {row['host_waits_per_iter']}, "
+            f"launches {counts} / projections {info['projections']} [{smi}]")
+        log(f"[maxcut] {label} PSD buckets (B, side, layout, backend) {psd}; block KKT "
+            f"buckets (N, k, R; R = 0: COO applies) {blocks}")
+        if res.status != "Solved":
+            raise AssertionError(f"{label}: {res.status}")
+        if n_nodes == 2000:
+            err = abs(res.obj_val - REF_MAXCUT2000) / abs(REF_MAXCUT2000)
+            row["rel_err"] = err
+            log(f"[maxcut] {label}: rel err {err:.2e} of {REF_MAXCUT2000} (limit 1e-04)")
+            if not err <= 1e-4 or "shear" not in layouts:
+                raise AssertionError(f"{label}: obj {res.obj_val}, layouts {layouts}")
+        else:
+            per = windows.close(res.iter)
+            row["windows"] = per
+            log(f"[maxcut] {label} device operations an iteration {per}")
+            if not {"shear", "colpad"} <= layouts or (1, 896, "colpad", "polar") not in psd:
+                raise AssertionError(f"{label}: layouts {psd}")
+            # the independent check: the dual slack diag(x) - L/4 is PSD
+            t1 = time.perf_counter()
+            lam = slack_lambda_min(res.x, L, device)
+            row.update(lambda_min=lam, sum_x=float(np.sum(res.x, dtype=np.float64)),
+                       eigvalsh_s=time.perf_counter() - t1)
+            log(f"[maxcut] {label}: lambda_min(diag(x) - L/4) {lam:.3e} (limit -1e-03), "
+                f"1'x {row['sum_x']:.10f}, eigvalsh {row['eigvalsh_s']:.2f} s")
+            if not lam >= -1e-3:
+                raise AssertionError(f"{label}: lambda_min {lam}")
+        out[label] = row
+    return out
 
 
 def phase_known_answers(device):
@@ -496,20 +627,25 @@ def main(argv=None):
     known = timed("known", lambda: phase_known_answers(device))
     decomposed = timed("decomposed", lambda: phase_decomposed(device, smi))
     default = timed("default", lambda: phase_default(device, smi))
+    maxcut = timed("maxcut", lambda: phase_maxcut(device, smi))
     seconds["total"] = time.perf_counter() - t0
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
 
-    # each kernel at the decomposed path's shape (B = 2498, k = 16), with the
-    # launches of its path's warm solve: jacobi_proj on the default path
-    # (float32), jacobi_proj_rr under COSMO_TPU_PALLAS_RR (phase 5, float64)
+    # each kernel at the shape of its path, with that path's launches:
+    # jacobi_proj on the banded default path (B = 2498, k = 16, float32,
+    # phase 6) and on the maxcut-10k path (B = 8540, k = 8,
+    # float32, phase 7), jacobi_proj_rr under COSMO_TPU_PALLAS_RR (B = 2498,
+    # k = 16, float64, phase 5's warm solve)
     kernels = []
-    for name, replaces, dtype_name, launches in (
-            ("jacobi_proj", "cosmo_tpu/ops/pallas_eigh.py:132", "float32",
-             default["float32_warm"]["launches"]),
-            ("jacobi_proj_rr", "cosmo_tpu/ops/pallas_eigh.py:69", "float64",
+    for name, replaces, dtype_name, B, k, launches in (
+            ("jacobi_proj", "cosmo_tpu/ops/pallas_eigh.py:132", "float32", 2498, 16,
+             default["float32"]["launches"]),
+            ("jacobi_proj", "cosmo_tpu/ops/pallas_eigh.py:132", "float32", 8540, 8,
+             maxcut["maxcut-10000"]["launches"]),
+            ("jacobi_proj_rr", "cosmo_tpu/ops/pallas_eigh.py:69", "float64", 2498, 16,
              decomposed["jacobi_proj_rr_warm"]["launches"])):
         row = next(r for r in kernel_rows if r["kernel"] == name
-                   and r["dtype"] == dtype_name and r["k"] == 16 and r["B"] == 2498)
+                   and r["dtype"] == dtype_name and r["k"] == k and r["B"] == B)
         kernels.append(dict(
             name=name,
             route="cuda",
@@ -518,6 +654,8 @@ def main(argv=None):
             launches=launches,
             max_abs_err=row["max_abs_err"],
             ms=row["ms"],
+            device_ms=row["device_ms"],
+            shape=dict(B=B, k=k, dtype=dtype_name),
             plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"],
             bound_by=row["bound_by"],
@@ -529,7 +667,7 @@ def main(argv=None):
             json.dump(dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                            seconds=seconds, kernel=kernel_rows, slice=slice_out,
                            known=known, decomposed=decomposed, default=default,
-                           kernels=kernels),
+                           maxcut=maxcut, kernels=kernels),
                       f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -177,13 +177,23 @@ def compact_transform(
     """
     import scipy.sparse as sp
 
-    from ..ops.conedata import not_ported, pad_side
+    from ..ops.conedata import pad_side
 
     m, n = A.shape
     pat_by_cone = {p.cone_index: p for p in patterns}
 
     def _kb(nblk: int) -> int:
         return pad_side(nblk, pad_to) if pad_to > 1 else nblk
+
+    def _colpad(kb: int) -> bool:
+        # giant blocks take column-padded svec storage
+        # (models/cones.py PsdConeTriangleColPad): the projection's
+        # tri <-> full conversion becomes one reshape and a mask, at the
+        # cost of kb(kb-1)/2 structural-zero rows on the elementwise path
+        return pad_to > 1 and kb >= colpad_min
+
+    def _block_rows(kb: int) -> int:
+        return kb * kb if _colpad(kb) else tri_dim(kb)
 
     # --- per-pattern block layout plan: [(clique or None, nb, kb), ...] ---
     # cliques grouped by padded side (stable within a group: reverse post
@@ -213,14 +223,6 @@ def compact_transform(
                     [(None, 0, kb)] * ((-len(groups[kb])) % pad_batch)
                 )
         plans[p.cone_index] = plan
-        big = [kb for _, _, kb in plan if pad_to > 1 and kb >= colpad_min]
-        if big:
-            # the reference gives such giant blocks column-padded storage
-            # (PsdConeTriangleColPad), which is not ported: raise rather
-            # than run the dense triangle layout in its place
-            raise not_ported(f"the colpad layout of a decomposed clique "
-                             f"block of side {max(big)}",
-                             "shear and colpad layouts")
 
     # --- sizes ---
     num_overlaps = 0
@@ -229,7 +231,7 @@ def compact_transform(
         if k in pat_by_cone:
             t = pat_by_cone[k].tree
             for c, nblk, kb in plans[k]:
-                m_new += tri_dim(kb)
+                m_new += _block_rows(kb)
                 if c is not None:
                     num_overlaps += tri_dim(len(t.sep[c]))
         else:
@@ -264,19 +266,23 @@ def compact_transform(
         rs = row_start_orig
         plan = plans[k]
 
-        # row starts per clique in layout order
+        # row starts (and padded sides) per clique in layout order
         clique_row_start = {}
+        clique_kb = {}
         rp = row_ptr
         for c, nblk, kb in plan:
             if c is not None:
                 clique_row_start[c] = rp
-            rp += tri_dim(kb)
+                clique_kb[c] = kb
+            rp += _block_rows(kb)
 
         ordering = np.ascontiguousarray(ordering, dtype=np.int64)
         for c, nblk, kb in plan:
             if c is None:
                 # dummy block: all rows stay at the dump map / zero data
-                sets_new.append(C.PsdConeTriangle(tri_dim(kb)))
+                sets_new.append(
+                    C.PsdConeTriangleColPad(kb * kb) if _colpad(kb)
+                    else C.PsdConeTriangle(tri_dim(kb)))
                 continue
             snd_c = np.fromiter(t.snd[c], np.int64, len(t.snd[c]))
             sep_c = np.fromiter(t.sep[c], np.int64, len(t.sep[c]))
@@ -290,9 +296,14 @@ def compact_transform(
             gi = clique_sorted[ii]            # original matrix indices
             gj = clique_sorted[jj]
             orig_rows = rs + gj * (gj + 1) // 2 + gi
-            # svec entries of the real nb x nb block are the contiguous
-            # prefix of the padded block's rows (column-major triangle)
-            new_rows = clique_row_start[c] + np.arange(orig_rows.size)
+            base = clique_row_start[c]
+            if _colpad(kb):
+                # column-padded storage: entry (i, j) at stride-kb slot
+                new_rows = base + jj * kb + ii
+            else:
+                # svec entries of the real nb x nb block are the contiguous
+                # prefix of the padded block's rows (column-major triangle)
+                new_rows = base + np.arange(orig_rows.size)
             row_map[new_rows] = orig_rows
             is_ov = in_sep[ii] & in_sep[jj]
             data_mask[new_rows] = ~is_ov
@@ -305,11 +316,17 @@ def compact_transform(
                 # positions of (gi, gj) inside the sorted parent clique
                 pi = np.searchsorted(par_clique, gi[is_ov])
                 pj = np.searchsorted(par_clique, gj[is_ov])
-                parent_rows = par_row0 + pj * (pj + 1) // 2 + pi
+                kb_par = clique_kb[par]
+                if _colpad(kb_par):
+                    parent_rows = par_row0 + pj * kb_par + pi
+                else:
+                    parent_rows = par_row0 + pj * (pj + 1) // 2 + pi
                 ov_child_rows.append(new_rows[is_ov])
                 ov_parent_rows.append(parent_rows)
 
-            sets_new.append(C.PsdConeTriangle(tri_dim(kb)))
+            sets_new.append(
+                C.PsdConeTriangleColPad(kb * kb) if _colpad(kb)
+                else C.PsdConeTriangle(tri_dim(kb)))
 
         row_ptr = rp
         row_start_orig += cone.dim

@@ -37,12 +37,9 @@ def cones_from_dict(d: dict, device, dtype: torch.dtype) -> conedata.ConeData:
             raise not_ported(f"{key} cones", "exp/pow/custom/complex cones")
     if d.get("custom"):
         raise not_ported("custom cones", "exp/pow/custom/complex cones")
-    psd = []
-    for b in d.get("psd_buckets", ()):
-        if b.get("fastpath", "none") not in ("none", "matmul"):
-            raise not_ported(f"the {b['fastpath']} PSD layout",
-                             "shear and colpad layouts")
-        psd.append(conedata.PsdBucket(**_pick(conedata.PsdBucket, b)))
+    # the shear and colpad buckets also get the port's derived maps
+    psd = [conedata.layout_maps(conedata.PsdBucket(**_pick(conedata.PsdBucket, b)))
+           for b in d.get("psd_buckets", ())]
     soc = [conedata.SocBucket(idx=b["idx"]) for b in d.get("soc_buckets", ())]
     top = _pick(conedata.ConeData, d)
     top.update(soc_buckets=tuple(soc), psd_buckets=tuple(psd))

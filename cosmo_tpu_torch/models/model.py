@@ -34,6 +34,10 @@ from . import cones as C
 from .constraint import Constraint
 
 
+# the PSD cones a decomposed problem's blocks come in
+_PSD_BLOCKS = (C.PsdCone, C.PsdConeTriangle, C.PsdConeTriangleColPad)
+
+
 def _to_dense(M) -> np.ndarray:
     if sp.issparse(M):
         return np.asarray(M.todense())
@@ -150,8 +154,6 @@ class Model:
             raise not_ported(f"kkt_solver={settings.kkt_solver!r}",
                              "Coo + CG" if settings.kkt_solver in ("cg", "minres")
                              else "custom KKT solvers")
-        if settings.time_limit and settings.time_limit > 0:
-            raise not_ported("time_limit > 0", "time limit and chunking")
         if settings.adaptive_rho and settings.adaptive_rho_interval == 0:
             raise not_ported("adaptive_rho_interval == 0 (the auto probe)",
                              "time limit and chunking")
@@ -306,11 +308,14 @@ class Model:
                                      refine_hint=refine_hint, device=self.device)
         times.setup_time = time.perf_counter() - t_setup
 
+        # the time limit runs from the start of optimize (reference t_solver)
+        deadline = (t_solver + settings.time_limit
+                    if settings.time_limit and settings.time_limit > 0 else None)
         t_iter = time.perf_counter()
         out = solver_mod.solve(dev["Pd"], dev["Ad"], dev["qd"], dev["bd"], cones,
                                dev["x0"], dev["s0"], dev["mu0"], dyn, static,
                                kkt_block=kkt_block, rho_row_scale=dev["rho_row_scale"],
-                               on_iter=on_iter)
+                               on_iter=on_iter, deadline=deadline)
         times.iter_time = time.perf_counter() - t_iter
 
         t_post = time.perf_counter()
@@ -323,7 +328,7 @@ class Model:
             device=self.device, dtype=dtype, A_layout=type(dev["Ad"]).__name__,
             kkt_solver=settings.kkt_solver,
             chordal_blocks=(0 if chordal_info is None else sum(
-                isinstance(s_, (C.PsdCone, C.PsdConeTriangle)) for s_ in sets)),
+                isinstance(s_, _PSD_BLOCKS) for s_ in sets)),
             eigh_backend=cones.eigh_backend, bucket_backends=backends,
             jacobi_kernel=(jacobi_proj.selected_kernel()
                            if "pallas" in backends else None),
@@ -380,8 +385,12 @@ def _rho_row_scale(settings, chordal_info, sets, m, dtype, device):
     off = 0
     for s_ in sets:
         d_ = s_.dim
-        if isinstance(s_, (C.PsdCone, C.PsdConeTriangle)):
-            frac = float(ov[off:off + d_].sum()) / max(d_, 1)
+        if isinstance(s_, _PSD_BLOCKS):
+            # the fraction of the block's real rows: colpad storage's pad
+            # slots must not dilute it
+            real = (s_.side * (s_.side + 1) // 2
+                    if isinstance(s_, C.PsdConeTriangleColPad) else d_)
+            frac = float(ov[off:off + d_].sum()) / max(real, 1)
             if frac > 0.0:
                 scale[off:off + d_] = settings.rho_overlap_scale ** frac
         off += d_

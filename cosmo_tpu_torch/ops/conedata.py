@@ -7,16 +7,19 @@ src/convexset.jl:885-891):
   elementwise clip with per-row lower/upper bound vectors;
 * second-order cones are bucketed by padded dimension into ``[B, d]``
   stacks (zero-padding is exact for the SOC projection);
-* real PSD cones (square and svec-triangle storage) are bucketed by padded
-  side into ``[B, k, k]`` stacks, projected one batched call per bucket.
+* real PSD cones (square, svec-triangle and column-padded svec storage)
+  are bucketed by padded side into ``[B, k, k]`` stacks, projected one
+  batched call per bucket.
 
 Gather/scatter between the slack vector and the stacks use precomputed
-index maps; padding lanes point at a one-past-the-end "dump" slot.
+index maps; padding lanes point at a one-past-the-end "dump" slot. A bucket
+of uniform blocks in contiguous rows takes a layout fast path instead
+(:class:`PsdBucket`): a selection matmul (small side), the slice-shear
+(large side) or one reshape (column-padded storage).
 
 :func:`compile_cones` builds numpy arrays on the host; :func:`to_device`
 moves the result to a torch device. Exponential, power, custom and complex
-PSD cones, and the "shear"/"colpad" layouts of large PSD blocks, are not
-ported yet and raise ``NotImplementedError``.
+PSD cones are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -75,10 +78,28 @@ class PsdBucket:
     gather:   X[b,i,j] = s_ext[gather_idx[b,i,j]] * gather_scale[b,i,j]
     scatter:  s[scatter_idx[b,i,j]] = Y[b,i,j] * scatter_scale[b,i,j]
 
-    ``fastpath == "matmul"``: a bucket of uniform-side triangle blocks in
-    contiguous rows with k <= 64 expands svec -> full with one selection
-    matmul (``expand`` [tri_len, k*k]) and compresses with another
-    (``compress`` [k*k, tri_len]) instead of the index maps.
+    Fast paths replace the index maps for a bucket of uniform blocks in
+    contiguous rows from ``contig_start`` on (``tri_len`` rows a block,
+    real side ``r0``):
+
+    * ``"matmul"`` (triangle storage, k <= 64): svec -> full with one
+      selection matmul (``expand`` [tri_len, k*k]), back with another
+      (``compress`` [k*k, tri_len]);
+    * ``"shear"`` (triangle storage, k > 64, where those matrices would be
+      O(k^4)): svec column j is the contiguous run from j(j+1)/2, so the
+      expansion is one gather of the [r0, r0] index ``sh_idx`` (column
+      starts ``sh_starts`` plus 0..r0-1) from the block's rows padded by
+      r0 zeros, a mask and scale, and a symmetrization; the compression
+      one gather of the flat map ``sh_flat`` scaled by ``sh_csc``;
+    * ``"colpad"`` (column-padded storage, r0 == k): the rows of a block
+      ARE an [r0, r0] matrix with columns as rows, so the expansion is one
+      reshape, a mask and scale, and a symmetrization; the compression one
+      transpose scaled by ``cp_csc`` (0 on the pad slots).
+
+    ``sh_scale`` [r0, r0] is the reference's mask and scale, columns as
+    rows (1 on the diagonal); ``sym_scale`` is the same with 1/2 on the
+    diagonal, so that ``U + U^T`` of the scaled stack is the symmetric
+    matrix in two operations (halving and doubling are exact).
     ``backend``: per-bucket projection backend override ("" = the
     ConeData-wide one).
     """
@@ -89,13 +110,20 @@ class PsdBucket:
     scatter_scale: Any
     side: int
     symmetrize: bool
-    fastpath: str = "none"     # "none" | "matmul"
+    fastpath: str = "none"     # "none" | "matmul" | "shear" | "colpad"
     backend: str = ""
     contig_start: int = -1
     tri_len: int = 0
     r0: int = 0
     expand: Any = None
     compress: Any = None
+    sh_starts: Any = None      # int [r0] column starts        (shear)
+    sh_scale: Any = None       # [r0, r0] mask * scale, [j, i]  (shear, colpad)
+    sh_flat: Any = None        # int [tri_len] flat i*r0+j map  (shear)
+    sh_csc: Any = None         # [tri_len] compress scale       (shear)
+    cp_csc: Any = None         # [r0, r0] compress mask*scale   (colpad)
+    sh_idx: Any = None         # int [r0, r0] shear gather index (shear)
+    sym_scale: Any = None      # [r0, r0] sh_scale, diagonal 1/2 (shear, colpad)
 
     @property
     def batch(self) -> int:
@@ -181,7 +209,6 @@ def _tri_index(i: int, j: int) -> int:
 
 
 _NOT_PORTED_CONES = (
-    (C.PsdConeTriangleColPad, "column-padded PSD storage (colpad layout)"),
     (C.PsdConeTriangleComplex, "complex PSD cones"),
     (C.ExponentialCone, "exponential cones"),
     (C.DualExponentialCone, "exponential cones"),
@@ -200,9 +227,7 @@ def compile_cones(sets: List[C.ConvexSet], dtype=np.float64, psd_pad_to: int = 8
     ``"auto"`` backend resolves for it (:func:`resolve_eigh_backend`)."""
     for cls, what in _NOT_PORTED_CONES:
         if any(isinstance(s, cls) for s in sets):
-            raise not_ported(what, "exp/pow/custom/complex cones"
-                             if cls is not C.PsdConeTriangleColPad
-                             else "shear and colpad layouts")
+            raise not_ported(what, "exp/pow/custom/complex cones")
     if eigh_backend in ("amortized", "jacobi_mm"):
         raise not_ported(f"eigh_backend={eigh_backend!r}",
                          "amortized/jacobi_mm backends")
@@ -219,7 +244,9 @@ def compile_cones(sets: List[C.ConvexSet], dtype=np.float64, psd_pad_to: int = 8
     rect_seg = np.zeros(m, dtype=np.int32)
 
     soc_groups: dict[int, list[tuple[int, int]]] = {}   # d_pad -> [(offset, d)]
-    psd_groups: dict[tuple[int, bool], list[tuple[int, int]]] = {}  # (k, square) -> [(offset, r)]
+    # (k, kind) -> [(offset, r)]; kind: False triangle, True square storage,
+    # "colpad" column-padded triangle storage
+    psd_groups: dict[tuple[int, Any], list[tuple[int, int]]] = {}
 
     n_rect = 0
     offset = 0
@@ -237,10 +264,16 @@ def compile_cones(sets: List[C.ConvexSet], dtype=np.float64, psd_pad_to: int = 8
             lb[rows] = cone.l
             ub[rows] = cone.u
             box_mask[rows] = True
-        elif isinstance(cone, (C.SecondOrderCone, C.PsdCone, C.PsdConeTriangle)):
+        elif isinstance(cone, (C.SecondOrderCone, C.PsdCone, C.PsdConeTriangle,
+                               C.PsdConeTriangleColPad)):
             if isinstance(cone, C.SecondOrderCone):
                 pad = pad_side(d, 1 if not soc_pad_pow2 else 2)
                 soc_groups.setdefault(pad, []).append((offset, d))
+            elif isinstance(cone, C.PsdConeTriangleColPad):
+                # the chordal transform emits it pre-padded: the side IS
+                # the storage stride, so no ladder padding applies
+                psd_groups.setdefault((cone.side, "colpad"), []).append(
+                    (offset, cone.side))
             elif cone.side <= 1:
                 # 1x1 PSD block == nonnegativity (convexset.jl:303-308)
                 lb[rows] = 0.0
@@ -269,10 +302,16 @@ def compile_cones(sets: List[C.ConvexSet], dtype=np.float64, psd_pad_to: int = 8
     # PSD buckets: group by padded side; collapse pathological shape
     # diversity (> 6 small sides) into the largest small side
     norm_groups: dict = {}
-    for (k, square), blocks in psd_groups.items():
-        norm_groups.setdefault(k, []).extend((o, r, square) for (o, r) in blocks)
+    for (k, kind), blocks in psd_groups.items():
+        norm_groups.setdefault(k, []).extend((o, r, kind) for (o, r) in blocks)
     if psd_pad_to > 1:
-        small_sides = [k for k in norm_groups if k <= 48]
+        # colpad groups stay out: their maps are built at the block's own
+        # storage stride r == k, and merging an r < k colpad block into a
+        # larger side would index past its r*r rows into its neighbours'
+        small_sides = [
+            k for k, blocks in norm_groups.items()
+            if k <= 48 and not any(kind == "colpad" for (_, _, kind) in blocks)
+        ]
         if len(small_sides) > 6:
             target = max(small_sides)
             merged = []
@@ -319,12 +358,30 @@ def compile_cones(sets: List[C.ConvexSet], dtype=np.float64, psd_pad_to: int = 8
     )
 
 
+def layout_maps(bucket: PsdBucket) -> PsdBucket:
+    """``bucket`` with the port's derived layout maps (``sh_idx``,
+    ``sym_scale``) filled in from the reference's fields, for a shear or
+    colpad bucket whose maps are numpy arrays; others come back as given."""
+    if bucket.fastpath not in ("shear", "colpad") or bucket.sym_scale is not None:
+        return bucket
+    r0 = bucket.r0
+    sym = np.array(bucket.sh_scale, copy=True)
+    sym[np.diag_indices(r0)] *= 0.5
+    sh_idx = None
+    if bucket.fastpath == "shear":
+        sh_idx = (np.asarray(bucket.sh_starts, np.int64)[:, None]
+                  + np.arange(r0)[None, :])
+    return dataclasses.replace(bucket, sh_idx=sh_idx, sym_scale=sym)
+
+
 def _psd_bucket(k: int, blocks, DUMP: int, dtype) -> PsdBucket:
-    """One bucket of side k from [(offset, r, square)] blocks."""
+    """One bucket of side k from [(offset, r, kind)] blocks (kind: False
+    triangle, True square, "colpad" column-padded triangle storage)."""
+    kinds = {kind for (_, _, kind) in blocks}
     # square (column-stacked) storage gathers an unsymmetrized matrix;
-    # symmetrizing is a no-op for triangle storage, so a mixed bucket
+    # symmetrizing is a no-op for the other storages, so a mixed bucket
     # symmetrizes everything
-    symmetrize = any(square for (_, _, square) in blocks)
+    symmetrize = True in kinds
     B = len(blocks)
     g_idx = np.full((B, k, k), DUMP, dtype=np.int32)
     g_scl = np.zeros((B, k, k), dtype=dtype)
@@ -334,15 +391,15 @@ def _psd_bucket(k: int, blocks, DUMP: int, dtype) -> PsdBucket:
     # svec-triangle blocks: one [k, k] template per distinct side r,
     # broadcast over every block of that side
     tri_batch: dict[int, list[tuple[int, int]]] = {}
-    for b, (o, r, square) in enumerate(blocks):
-        if square:
+    for b, (o, r, kind) in enumerate(blocks):
+        if kind is True:
             # column-stacked storage: vec index of (i, j) = o + j*r + i
             ii, jj = np.meshgrid(np.arange(r), np.arange(r), indexing="ij")
             g_idx[b, :r, :r] = o + jj * r + ii
             g_scl[b, :r, :r] = 1.0
             s_idx[b, :r, :r] = o + jj * r + ii
             s_scl[b, :r, :r] = 1.0
-        else:
+        elif kind is False:
             tri_batch.setdefault(r, []).append((b, o))
     for r, bo in tri_batch.items():
         jj, ii = np.tril_indices(r)            # (i, j) with i <= j
@@ -362,36 +419,72 @@ def _psd_bucket(k: int, blocks, DUMP: int, dtype) -> PsdBucket:
         s_idx[bb, iB, jB] = tb
         s_scl[bb, iB, jB] = scl_s[None, :]
 
-    # uniform-side triangle blocks in contiguous rows -> selection-matmul
-    # fast path (k <= 64); larger k would take the shear layout
+    # colpad blocks (r == k): the gather reads the stored upper entry for
+    # both (i, j) and (j, i); the scatter writes the upper entries scaled
+    # and the strictly-lower pad slots with scale 0, so every row of the
+    # block is written on this route too
+    cp_blocks = [(b, o) for b, (o, r, kind) in enumerate(blocks) if kind == "colpad"]
+    if cp_blocks:
+        iu, ju = np.triu_indices(k)            # i <= j
+        t = ju * k + iu                        # stored slot, column-major
+        scl_g = np.where(iu == ju, 1.0, 1.0 / SQRT2).astype(dtype)
+        scl_s = np.where(iu == ju, 1.0, SQRT2).astype(dtype)
+        il, jl = np.tril_indices(k, -1)        # i > j: pad slots
+        tl = jl * k + il
+        for b, o in cp_blocks:
+            g_idx[b, iu, ju] = o + t
+            g_idx[b, ju, iu] = o + t
+            g_scl[b, iu, ju] = scl_g
+            g_scl[b, ju, iu] = scl_g
+            s_idx[b, iu, ju] = o + t
+            s_scl[b, iu, ju] = scl_s
+            s_idx[b, il, jl] = o + tl
+            s_scl[b, il, jl] = 0.0
+
+    # uniform blocks in contiguous rows -> a layout fast path
     fastpath, contig_start, tri_len, r0u = "none", -1, 0, 0
     expand = compress = None
+    sh_starts = sh_scale = sh_flat = sh_csc = cp_csc = None
     rs = {r for (_, r, _) in blocks}
-    if not symmetrize and len(rs) == 1:
+    offs = [o for (o, _, _) in blocks]
+    if len(rs) == 1 and kinds in ({"colpad"}, {False}):
         r0u = next(iter(rs))
-        t0 = r0u * (r0u + 1) // 2
-        offs = [o for (o, _, _) in blocks]
-        if all(offs[i + 1] - offs[i] == t0 for i in range(len(offs) - 1)):
-            if k > 64:
-                raise not_ported(
-                    f"the shear layout of a uniform PSD bucket of side {k}",
-                    "shear and colpad layouts")
-            fastpath = "matmul"
-            contig_start = int(offs[0])
-            tri_len = t0
-            expand = np.zeros((t0, k * k), dtype)
-            compress = np.zeros((k * k, t0), dtype)
-            for j in range(r0u):
-                for i in range(j + 1):
-                    t = _tri_index(i, j)
-                    scl = 1.0 if i == j else 1.0 / SQRT2
-                    expand[t, i * k + j] = scl
-                    expand[t, j * k + i] = scl
-                    compress[i * k + j, t] = 1.0 if i == j else SQRT2
-    return PsdBucket(
+        jr = np.arange(r0u)
+        # columns as rows: [j, i] holds entry (i, j) for i <= j
+        mask = jr[None, :] <= jr[:, None]
+        diag = jr[None, :] == jr[:, None]
+        step = r0u * r0u if kinds == {"colpad"} else r0u * (r0u + 1) // 2
+        if all(offs[i + 1] - offs[i] == step for i in range(len(offs) - 1)):
+            contig_start, tri_len = int(offs[0]), step
+            if kinds == {"colpad"}:
+                fastpath = "colpad"
+                sh_scale = np.where(diag, 1.0, 1.0 / SQRT2).astype(dtype) * mask
+                cp_csc = np.where(diag, 1.0, SQRT2).astype(dtype) * mask
+            elif k <= 64:
+                # the selection matrices are O(k^4): a few MB at k <= 64
+                fastpath = "matmul"
+                expand = np.zeros((step, k * k), dtype)
+                compress = np.zeros((k * k, step), dtype)
+                for j in range(r0u):
+                    for i in range(j + 1):
+                        t = _tri_index(i, j)
+                        scl = 1.0 if i == j else 1.0 / SQRT2
+                        expand[t, i * k + j] = scl
+                        expand[t, j * k + i] = scl
+                        compress[i * k + j, t] = 1.0 if i == j else SQRT2
+            else:
+                fastpath = "shear"
+                sh_starts = (jr * (jr + 1) // 2).astype(np.int32)
+                sh_scale = np.where(diag, 1.0, 1.0 / SQRT2).astype(dtype) * mask
+                jj_t = np.repeat(jr, jr + 1)
+                ii_t = np.arange(step) - (jj_t * (jj_t + 1) // 2)
+                sh_flat = (ii_t * r0u + jj_t).astype(np.int32)
+                sh_csc = np.where(ii_t == jj_t, 1.0, SQRT2).astype(dtype)
+    return layout_maps(PsdBucket(
         gather_idx=g_idx, gather_scale=g_scl,
         scatter_idx=s_idx, scatter_scale=s_scl,
         side=k, symmetrize=symmetrize, fastpath=fastpath,
         contig_start=contig_start, tri_len=tri_len, r0=int(r0u),
-        expand=expand, compress=compress,
-    )
+        expand=expand, compress=compress, sh_starts=sh_starts,
+        sh_scale=sh_scale, sh_flat=sh_flat, sh_csc=sh_csc, cp_csc=cp_csc,
+    ))

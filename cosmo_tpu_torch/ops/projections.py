@@ -50,6 +50,26 @@ def _psd_gather(v_ext, bucket: PsdBucket):
         B, start = bucket.batch, bucket.contig_start
         V = v_ext[start:start + B * bucket.tri_len].reshape(B, bucket.tri_len)
         return (V @ bucket.expand).reshape(B, bucket.side, bucket.side)
+    if bucket.fastpath == "colpad":
+        # column-padded storage: the block's rows are an [r0, r0] matrix
+        # with columns as rows; mask and scale it (diagonal halved), then
+        # U + U^T is the symmetric block: no gather
+        B, r0, start = bucket.batch, bucket.r0, bucket.contig_start
+        U = v_ext[start:start + B * bucket.tri_len].reshape(B, r0, r0) * bucket.sym_scale
+        return U + U.transpose(-1, -2)
+    if bucket.fastpath == "shear":
+        # large side: svec column j is a contiguous run, so one gather of
+        # the [r0, r0] index (column starts + 0..r0-1) from the block's
+        # rows padded by r0 zeros shears the columns into rows; the entries
+        # past a column's end are masked
+        B, r0, k, start = bucket.batch, bucket.r0, bucket.side, bucket.contig_start
+        V = v_ext[start:start + B * bucket.tri_len].reshape(B, bucket.tri_len)
+        Vp = torch.nn.functional.pad(V, (0, r0))
+        U = Vp[:, bucket.sh_idx] * bucket.sym_scale       # [B, j, i]
+        X = U + U.transpose(-1, -2)
+        if r0 < k:
+            X = torch.nn.functional.pad(X, (0, k - r0, 0, k - r0))
+        return X
     X = v_ext[bucket.gather_idx] * bucket.gather_scale
     if bucket.symmetrize:
         X = 0.5 * (X + X.transpose(-1, -2))
@@ -87,14 +107,27 @@ def project(w2, cones: ConeData):
 
     for bucket in cones.psd_buckets:
         Y = _psd_project_bucket(_psd_gather(v_ext, bucket), cones, bucket)
-        if bucket.fastpath == "matmul":
-            B, start = bucket.batch, bucket.contig_start
-            T = Y.reshape(B, bucket.side * bucket.side) @ bucket.compress
-            s[start:start + B * bucket.tri_len] = T.reshape(-1)  # s is ours
-        else:
-            s_ext = _ext(s)
-            s_ext[bucket.scatter_idx] = Y * bucket.scatter_scale
-            s = s_ext[:-1]
+        s = _psd_scatter(s, Y, bucket)
+    return s
+
+
+def _psd_scatter(s, Y, bucket: PsdBucket):
+    """``s`` with the bucket's rows set from the [B, k, k] stack ``Y`` (in
+    place on a fast path: ``s`` must be the caller's own tensor)."""
+    B, start = bucket.batch, bucket.contig_start
+    if bucket.fastpath == "matmul":
+        T = Y.reshape(B, bucket.side * bucket.side) @ bucket.compress
+    elif bucket.fastpath == "colpad":
+        # [j, i] layout: the upper entries scaled, the pad slots 0
+        T = Y.transpose(-1, -2) * bucket.cp_csc
+    elif bucket.fastpath == "shear":
+        r0 = bucket.r0
+        T = Y[:, :r0, :r0].reshape(B, r0 * r0)[:, bucket.sh_flat] * bucket.sh_csc
+    else:
+        s_ext = _ext(s)
+        s_ext[bucket.scatter_idx] = Y * bucket.scatter_scale
+        return s_ext[:-1]
+    s[start:start + B * bucket.tri_len] = T.reshape(-1)
     return s
 
 

@@ -1,7 +1,8 @@
 """Where the time of a port slice's solve goes on a CUDA card.
 
-    python -m cosmo_tpu_torch.profile_slice [--problem block_sdp|banded]
-        [--settings plain|default] [--dtype float32|float64] [--out DIR]
+    python -m cosmo_tpu_torch.profile_slice [--problem block_sdp|banded|maxcut]
+        [--nodes N] [--settings plain|default] [--dtype float32|float64]
+        [--out DIR]
 
 ``--problem block_sdp`` (the first slice): ``problems.block_sdp(512, 16,
 512, seed=0)`` with CSR A, plain ADMM, no decomposition. ``--problem
@@ -11,7 +12,13 @@ with plain ADMM in float64 by default. ``--settings default`` (the fourth
 slice, banded only) solves it at the north-star settings of ``bench.py``
 (eps 1e-5, max_iter 20000, every other option at its default: Anderson
 acceleration, the refine latch, the df32 block KKT), float32 by default.
-Set ``COSMO_TPU_PALLAS_RR=1`` to profile the slot-rotation kernel.
+``--problem maxcut --nodes N`` (the fifth slice): ``problems.maxcut(N,
+4/N, seed=0, sparse=True)`` at the settings of ``bench.py``'s
+``_bench_maxcut10k`` for N = 10000 (eps 1e-5, max_iter 20000, a 600 s
+time limit, float32) and ``_bench_maxcut_default`` otherwise (the same
+without the limit), which are default settings; it adds each PSD bucket's
+gather, projection and scatter times (:func:`bucket_times`). Set
+``COSMO_TPU_PALLAS_RR=1`` to profile the slot-rotation kernel.
 
 The problem is solved once to warm up, once more without the profiler
 (set-up and loop times) and once under ``torch.profiler``: the whole solve
@@ -22,7 +29,8 @@ and 100 refined iterations (:class:`IterationWindows`), each window with
 its device operations an iteration, busy share, Jacobi share and device
 time by kernel, and the solver's host waits split at the refine latch.
 With ``--out DIR`` the table is also written to
-``DIR/profile_slice_<problem>_<settings>_<dtype>.json``. Needs CUDA.
+``DIR/profile_slice_<problem>_<settings>_<dtype>.json`` (the problem's
+name with its node count for maxcut). Needs CUDA.
 """
 from __future__ import annotations
 
@@ -32,7 +40,8 @@ import os
 import subprocess
 import time
 
-# bench.py _bench_northstar without its time limit
+# bench.py _bench_northstar without its time limit, and _bench_maxcut_default
+# (_bench_maxcut10k adds time_limit=600)
 NORTHSTAR = dict(eps_abs=1e-5, eps_rel=1e-5, max_iter=20000, decompose=True)
 
 
@@ -121,6 +130,35 @@ class IterationWindows:
         return out
 
 
+def bucket_times(model, reps=20):
+    """Each PSD bucket of ``model``'s last solve, as (B, side, layout,
+    backend), with the ``launch_ms`` of its gather, projection and scatter
+    on a random input of the solve's shape and type (no solve state is
+    touched)."""
+    import torch
+
+    from .kernel_timing import launch_ms
+    from .ops import projections as pr
+    from .solver import _full_f32_matmuls
+
+    cones = model._dev_cache["cones"]
+    w = torch.randn(cones.m, dtype=model.last_solve["dtype"], device=cones.lb.device)
+    v_ext = pr._ext(w)
+    out = []
+    with _full_f32_matmuls():        # as in the solve
+        for b in cones.psd_buckets:
+            X = pr._psd_gather(v_ext, b)
+            Y = pr._psd_project_bucket(X, cones, b)
+            s = w.clone()
+            out.append(dict(
+                B=b.batch, side=b.side, layout=b.fastpath,
+                backend=b.backend or cones.eigh_backend,
+                gather_ms=launch_ms(lambda: pr._psd_gather(v_ext, b), reps),
+                project_ms=launch_ms(lambda: pr._psd_project_bucket(X, cones, b), reps),
+                scatter_ms=launch_ms(lambda: pr._psd_scatter(s, Y, b), reps)))
+    return out
+
+
 def host_waits(last_solve, iters):
     """The solver's host waits an iteration before and after the refine
     latch (``Model.last_solve``; all plain when it never tripped)."""
@@ -134,7 +172,9 @@ def host_waits(last_solve, iters):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--problem", choices=("block_sdp", "banded"), default="block_sdp")
+    parser.add_argument("--problem", choices=("block_sdp", "banded", "maxcut"),
+                        default="block_sdp")
+    parser.add_argument("--nodes", type=int, default=10000, help="maxcut's node count")
     parser.add_argument("--settings", choices=("plain", "default"), default="plain")
     parser.add_argument("--dtype", choices=("float32", "float64"), default=None,
                         help="default: float32 for block_sdp and --settings default, "
@@ -153,9 +193,19 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
-    if args.settings == "default" and args.problem != "banded":
+    if args.problem == "maxcut":
+        args.settings = "default"
+    elif args.settings == "default" and args.problem != "banded":
         raise SystemExit("--settings default profiles the banded problem")
-    if args.problem == "block_sdp":
+    name = args.problem
+    if args.problem == "maxcut":
+        dtype = args.dtype or "float32"
+        name = f"maxcut{args.nodes}"
+        data = problems.maxcut(args.nodes, 4.0 / args.nodes, seed=0, sparse=True)[:5]
+        label = f"maxcut({args.nodes}) decomposed, bench.py settings"
+        settings = pt.Settings(**NORTHSTAR, dtype=getattr(np, dtype),
+                               time_limit=600.0 if args.nodes == 10000 else 0.0)
+    elif args.problem == "block_sdp":
         dtype = args.dtype or "float32"
         P, q, A, b, sets = problems.block_sdp(n_blocks=512, side=16, n=512, seed=0)
         data, label = (P, q, sp.csr_matrix(A), b, sets), "block_sdp(512,16,512)"
@@ -182,9 +232,17 @@ def main(argv=None):
     print(f"unprofiled: graph {plain.times.graph_time:.4f} s, set-up "
           f"{plain.times.setup_time:.4f} s, loop {plain_loop:.4f} s "
           f"({plain.iter / plain_loop:.1f} iter/s)")
-    table = dict(card=card, problem=args.problem, settings=args.settings, dtype=dtype,
+    table = dict(card=card, problem=name, settings=args.settings, dtype=dtype,
                  kernel=kernel, status=plain.status, iter=plain.iter,
-                 setup_s=plain.times.setup_time, loop_s=plain_loop)
+                 graph_s=plain.times.graph_time, setup_s=plain.times.setup_time,
+                 loop_s=plain_loop)
+    if args.problem == "maxcut":
+        table["buckets"] = bucket_times(model)
+        print(f"{'B':>6} {'side':>5} {'layout':>7} {'backend':>7} {'gather ms':>10} "
+              f"{'project ms':>11} {'scatter ms':>11}")
+        for r in table["buckets"]:
+            print(f"{r['B']:6d} {r['side']:5d} {r['layout']:>7} {r['backend']:>7} "
+                  f"{r['gather_ms']:10.4f} {r['project_ms']:11.4f} {r['scatter_ms']:11.4f}")
     if args.settings == "default":
         # a whole profiled solve of ~2,000 iterations at ~650 device
         # operations each is too long to trace: profile windows instead
@@ -227,7 +285,7 @@ def main(argv=None):
     if not args.out:
         return
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, f"profile_slice_{args.problem}_{args.settings}_"
+    with open(os.path.join(args.out, f"profile_slice_{name}_{args.settings}_"
                                      f"{dtype}.json"), "w") as f:
         json.dump(table, f, indent=1)
 

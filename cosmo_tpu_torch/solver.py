@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from typing import Any, Callable, Optional
 
 import torch
@@ -220,7 +221,8 @@ class _Loop:
 
 def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
           kkt_block=None, rho_row_scale=None,
-          on_iter: Optional[Callable[[int, bool], None]] = None):
+          on_iter: Optional[Callable[[int, bool], None]] = None,
+          deadline: Optional[float] = None):
     """Full solve of ``min 1/2 x'Px + q'x s.t. Ax + s = b, s in K`` on the
     device of ``q``, with float32 products in full float32. ``cones`` is a
     device ConeData. With the dense KKT, ``P`` is a dense tensor and ``A``
@@ -229,16 +231,19 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
     ``kkt_block`` is the device :class:`~cosmo_tpu_torch.ops.blockkkt.
     BlockKKTMeta`. ``rho_row_scale``: an optional static per-row rho scale.
     ``on_iter(iteration, refine_on)``, if given, is called on the host after
-    every pass (a profiling hook). Returns a dict of host values (numpy
-    arrays and Python numbers)."""
+    every pass (a profiling hook). ``deadline``: a ``time.perf_counter()``
+    value; a termination check that finds the solve undecided past it ends
+    ``Time_limit_reached`` with the iterate of that check (the reference's
+    wall-clock check, solver.jl:303-321). Returns a dict of host values
+    (numpy arrays and Python numbers)."""
     check_supported(static)
     with _full_f32_matmuls():
         return _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block,
-                      rho_row_scale, on_iter)
+                      rho_row_scale, on_iter, deadline)
 
 
 def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale,
-           on_iter):
+           on_iter, deadline):
     m, n = static.m, static.n
     dtype, device = q.dtype, q.device
     accel_on = static.accel_mem > 0
@@ -487,6 +492,11 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
             c.status = results.UNSOLVED
         if c.status == results.UNDETERMINED and converged:
             c.status = results.SOLVED
+        # the host has just read this check's flags, so the clock costs no
+        # wait; the solve keeps the iterate the check measured
+        if (c.status == results.UNDETERMINED and deadline is not None
+                and time.perf_counter() > deadline):
+            c.status = results.TIME_LIMIT_REACHED
         if tripped:
             c.refine_on, c.refine_iter = True, c.it
             c.refine_syncs = waits(c)

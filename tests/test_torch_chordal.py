@@ -171,11 +171,19 @@ def test_dense_pattern_is_not_decomposed():
 
 
 def test_colpad_layout_raises():
-    """A clique block of padded side >= colpad_min would take the
-    column-padded layout, which is not ported: the decomposition raises
-    rather than build the dense triangle layout in its place."""
-    with pytest.raises(NotImplementedError, match="colpad"):
-        tch.decompose(*tprob.banded_sdp(60, 4)[:5], pt.Settings(colpad_min=8))
+    """A clique block of padded side >= colpad_min takes the column-padded
+    layout; it raised until the fifth slice ported it. Now the
+    decomposition no longer raises and gives the reference's cone list,
+    matrices and row maps, with every block column-padded."""
+    settings = dict(decompose=True, colpad_min=8)
+    jinfo = jch.decompose(*PROBLEMS["banded60"](jprob), ct.Settings(**settings))
+    tinfo = tch.decompose(*PROBLEMS["banded60"](tprob), pt.Settings(**settings))
+    assert [_cone_key(s) for s in jinfo.problem[4]] == [_cone_key(s) for s in tinfo.problem[4]]
+    assert {type(s).__name__ for s in tinfo.problem[4]} == {"PsdConeTriangleColPad"}
+    for a, b in zip(jinfo.problem[:4], tinfo.problem[:4]):
+        _same_matrix(a, b)
+    for f in ("row_map", "ov_child_rows", "ov_parent_rows"):
+        assert np.array_equal(getattr(jinfo, f), getattr(tinfo, f)), f
 
 
 def test_generators_identical():

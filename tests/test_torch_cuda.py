@@ -195,3 +195,37 @@ def test_default_settings_decomposed_float32_on_card(cuda):
     assert info["refine_iter"] > 0 and info["n_accelerated"] > 0
     assert res.info.res_history[-1, 5] == 1.0
     assert J.psd_project_pallas.launches == info["projections"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,colpad", [(96, False), (90, False), (192, False),
+                                         (64, True), (896, True)],
+                         ids=["shear96", "shear90_padded", "shear192", "colpad64",
+                              "colpad896"])
+def test_large_side_layouts_on_card(cuda, side, colpad):
+    """The shear and colpad gathers and scatters on the card equal the
+    CPU's in float32 (to 1e-6 relative), the colpad pad slots exactly 0.
+    Two blocks a bucket; the scatter writes into a zero vector."""
+    from cosmo_tpu_torch.models import cones as C
+    from cosmo_tpu_torch.ops import conedata, projections
+
+    cone = (C.PsdConeTriangleColPad(side * side) if colpad
+            else C.PsdConeTriangle(side * (side + 1) // 2))
+    host = conedata.compile_cones([cone, type(cone)(cone.dim)], dtype=np.float32,
+                                  device="cpu")
+    assert host.psd_buckets[0].fastpath == ("colpad" if colpad else "shear")
+    v = np.random.default_rng(side).standard_normal(host.m)
+    outs = []
+    for device in ("cpu", cuda):
+        cones = conedata.to_device(host, device, torch.float32)
+        bucket = cones.psd_buckets[0]
+        w = torch.as_tensor(v, dtype=torch.float32, device=device)
+        X = projections._psd_gather(projections._ext(w), bucket)
+        s = projections._psd_scatter(torch.zeros_like(w), X, bucket)
+        outs.append((X.cpu(), s.cpu()))
+    (X0, s0), (X1, s1) = outs
+    for a, b in ((X0, X1), (s0, s1)):
+        assert torch.allclose(a, b, rtol=1e-6, atol=1e-6 * a.abs().max().item())
+    if colpad:
+        pad = torch.ones(side, side, dtype=torch.bool).tril(-1).T.reshape(-1)
+        assert (s1.reshape(2, -1)[:, pad] == 0).all()

@@ -192,10 +192,9 @@ def test_default_machinery_matches_reference(settings, build, tol):
     (_with(mixed_precision=True), _qp),
     (_with(eigh_backend="amortized"), _min_eig),
     (_with(eigh_backend="jacobi_mm"), _min_eig),
-    (_with(time_limit=5.0), _qp),
     (_with(adaptive_rho_interval=0), _qp),
 ], ids=["cg", "custom_kkt", "coo", "mixed_precision", "amortized", "jacobi_mm",
-        "time_limit", "auto_rho_interval"])
+        "auto_rho_interval"])
 def test_unported_options_raise(make_settings, build):
     model = build(pt, pt.Model(make_settings(), device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

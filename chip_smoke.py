@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of cosmo_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py [--out DIR] [--seed N]
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 
@@ -15,9 +15,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 3. kernel: holds the round-robin and the slot-rotation Jacobi projection
    kernels against their plain PyTorch versions on the card (float32 and
    float64, k in {4, 6, ..., 16, 24, 32, 48}, B in {1, 512, 2498, 8540},
-   and the maxcut path's k = 8 at B in {1729, 8540}); at k = 16 and the
-   maxcut shapes it times kernel, plain version and ``torch.linalg.eigh``
-   yardstick with CUDA events;
+   and the maxcut path's k = 8 at B in {1729, 8540}); at the kernels
+   line's shapes ([2498, 16] and [8540, 8]) it times kernel, plain version
+   and ``torch.linalg.eigh`` yardstick with CUDA events;
 4. slice: solves ``problems.block_sdp(512, 16, 512, seed=0)`` with CSR A
    through ``Model.optimize`` on the card with plain ADMM, in float64 and
    float32 (a first solve, then a second on the same model), against the
@@ -34,12 +34,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    of ``bench.py`` (``Settings(eps_abs=1e-5, eps_rel=1e-5, max_iter=20000,
    decompose=True)``, every other option at its default: Anderson
    acceleration, the f32 refine latch and the df32-compensated block KKT)
-   in float32 (the card's default), then float64, one first solve each,
-   against the known objective; checks the block KKT, that every
-   projection went through ``jacobi_proj``, and in float32 that the refine
-   latch tripped and Anderson accelerated. A second float32 solve profiles
-   20 plain and 20 refined iterations (``torch.profiler``) for the device
-   operations an iteration, under ``torch.cuda.set_sync_debug_mode("warn")``;
+   in float32 (the card's default; the float64 solve is left out for the
+   run's time), against the known objective; checks the block KKT, that
+   every projection went through ``jacobi_proj``, that the refine latch
+   tripped and Anderson accelerated. A second solve on the same model
+   profiles 20 plain and 20 refined iterations (``torch.profiler``) for
+   the device operations an iteration, under
+   ``torch.cuda.set_sync_debug_mode("warn")``;
 7. maxcut: the decomposed maxcut SDP of ``bench.py``, float32, one first
    solve each: ``problems.maxcut(2000, 4/2000, seed=0, sparse=True)`` at
    ``_bench_maxcut_default``'s settings against the known objective, and
@@ -49,7 +50,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    that the Jacobi kernel took exactly the dominant side-8 bucket, every
    projection of it, the polar every other bucket, and that the shear (and
    at 10k the colpad) layout is on the path; the 10k solve profiles 20
-   plain and 20 refined iterations for the device operations an iteration.
+   plain and 20 refined iterations for the device operations an iteration;
+8. cg and re-solves: (a) the decomposed banded SDP of phase 6 with
+   ``kkt_solver="cg"``, float32: ``Coo``, the overlap preconditioner, CG
+   with the df32 restarts after the refine latch, ``jacobi_proj`` on every
+   projection, against the known objective; (b) the portfolio QP of the
+   OSQP benchmarks at k = 200 factors (n = 20,000 assets, ~2M non-zeros,
+   made from ``--seed``), default settings in float64 (``PORTFOLIO``),
+   through the auto CG route: a cold solve at gamma = 1, then ``update(q)``
+   and a warm start for gamma = 2, each Solved, held to float64 host checks
+   of x, y and s against the solver's stopping rule, the duality gap
+   within ``PORTFOLIO_GAP_TOL`` and the objective within twice that gap of
+   the optimum of ``problems.portfolio_optimum`` (the gamma = 1 objective
+   is also reported against the JAX package's ``REF_PORTFOLIO``); (c) the
+   gamma = 1 problem through ``solver.solve_chunked`` in chunks of 100
+   iterations against the uninterrupted solve (the same status, objective
+   within 1e-5); (d) the re-solve with ``verbose_timing``, its phase
+   timers finite, positive where the solve ran the phase.
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -84,6 +101,34 @@ REF_MAXCUT2000 = 1142.8673139897433
 MAXCUT_DEFAULT = dict(eps_abs=1e-5, eps_rel=1e-5, max_iter=20000, decompose=True,
                       dtype=np.float32)
 MAXCUT10K = dict(MAXCUT_DEFAULT, time_limit=600.0)
+# the banded-CG path of phase 8a: the north-star settings through CG
+BANDED_CG = dict(NORTHSTAR, kkt_solver="cg")
+# phase 8b's settings: the defaults in float64. In float32 neither package
+# reaches eps 1e-5 on this problem: cosmo_tpu on the CPU,
+# Settings(eps_abs=1e-5, eps_rel=1e-5, dtype=np.float32) on
+# problems.portfolio(20) and (50) -> Max_iter_reached at 5000 iterations
+# (r_prim 4.5e-5 and 2.2e-5, r_dual 1.4e-4 and 5.4e-4), and the port at
+# k = 200 on the card the same
+PORTFOLIO = dict(eps_abs=1e-5, eps_rel=1e-5, dtype=np.float64)
+PORTFOLIO_K = 200
+# the re-solve after the cold gamma = 1 (gamma = 0.5 and 4 left out for time)
+PORTFOLIO_GAMMA = 2.0
+# the optimum of problems.portfolio(200, gamma, seed=0), independent of the
+# ADMM solver: problems.portfolio_optimum(200, gamma) (an interior-point
+# method in float64 on the host, to a complementarity gap below 1e-13)
+PORTFOLIO_OPT = {1.0: -2.6232333546383533, 2.0: -1.2654503296560802}
+# The duality gap of an eps 1e-5 solve is held within this share of its
+# objective, and the objective within twice the gap of the optimum: the
+# residual rule lets each of the 20,000 box rows sit ~1e-5 outside [0, 1],
+# which moves the objective by ~1e-3 (the JAX package's own solve lands
+# 2.0e-3 from the optimum; the port's gaps were 1.5e-3 to 6.5e-3 at gamma
+# 1, 2 and 0.5 on the card, each objective's error within 1.2 times its gap)
+PORTFOLIO_GAP_TOL = 1e-2
+# cosmo_tpu on the CPU in float64: Model(Settings(eps_abs=1e-5, eps_rel=1e-5,
+# dtype=np.float64)).set(*cosmo_tpu_torch.problems.portfolio(200, 1.0, seed=0))
+# with cosmo_tpu's ZeroSet and Box of the same dimensions and bounds ->
+# Solved through kkt_solver "cg", 952 iterations, 255,250 CG steps; reported
+REF_PORTFOLIO = -2.628500495091212
 SWEEPS = 8                      # Settings.jacobi_sweeps default
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): float32 and
 # float64 outside the tensor cores, and HBM3 bandwidth
@@ -186,20 +231,21 @@ def _kernels():
             "jacobi_proj_rr": (R.jacobi_proj_rr_cuda, R.psd_project_jacobi_rr_plain)}
 
 
-# the maxcut path's kernel shapes (phase 7), timed beside the sweep
+# the maxcut path's kernel shapes (k = 8 at maxcut-2000's and maxcut-10k's
+# batch), checked beside the sweep
 MAXCUT_SHAPES = ((8, 1729), (8, 8540))
+# the shapes of the kernels line (the banded paths, maxcut-10k), timed
+TIMED_SHAPES = ((16, 2498), (8, 8540))
 
 
 def phase_kernel(device, ks=(4, 6, 8, 10, 12, 14, 16, 24, 32, 48),
-                 Bs=(1, 512, 2498, 8540), dtypes=("float32", "float64"), reps=20,
-                 timed_k=16):
+                 Bs=(1, 512, 2498, 8540), dtypes=("float32", "float64"), reps=20):
     """Each kernel vs its plain version at every shape (k in ``ks`` by B in
     ``Bs``, and ``MAXCUT_SHAPES``); timings of kernel, plain version and
-    eigh yardstick at k = ``timed_k`` and at ``MAXCUT_SHAPES`` (the
-    yardstick once a shape, shared by both kernels, which also share the
-    bound: they do the same rotations). ``ms``, ``plain_ms`` and
-    ``library_ms`` are ``launch_ms``; ``device_ms`` is the kernel's time
-    without the host's launch cost."""
+    eigh yardstick at ``TIMED_SHAPES`` (the yardstick once a shape, shared
+    by both kernels, which also share the bound: they do the same
+    rotations). ``ms``, ``plain_ms`` and ``library_ms`` are ``launch_ms``;
+    ``device_ms`` is the kernel's time without the host's launch cost."""
     import torch
     from cosmo_tpu_torch.kernel_timing import device_ms, launch_ms
     from cosmo_tpu_torch.ops import eigh as E
@@ -211,7 +257,7 @@ def phase_kernel(device, ks=(4, 6, 8, 10, 12, 14, 16, 24, 32, 48),
         for k, B in shapes:
             X = _stack(B, k, dtype, device, seed=1000 * k + B)
             big = B * k * k > 512 * 16 * 16 * 8
-            timed = k == timed_k or (k, B) in MAXCUT_SHAPES
+            timed = (k, B) in TIMED_SHAPES
             library_ms = (launch_ms(lambda: E.psd_project_eigh(X), 3 if big else reps)
                           if timed else None)
             bound_ms, bound_by = jacobi_bound_ms(B, k, dtype_name)
@@ -360,9 +406,10 @@ def phase_decomposed(device, smi):
 def phase_default(device, smi):
     """The decomposed banded SDP at the north-star settings: Anderson
     acceleration, the refine latch and the df32 block KKT, through the
-    Jacobi kernel. One first solve in float32 and one in float64; then a
-    second float32 solve with two profiled windows of iterations under the
-    sync debug mode "warn" (which slows it: its time is not reported)."""
+    Jacobi kernel. One first solve in float32; then a second float32 solve
+    on the same model with two profiled windows of iterations under the
+    sync debug mode "warn" (which slows it: its time is not reported). The
+    float64 solve of this phase is left out for the run's time."""
     import warnings
 
     import torch
@@ -372,34 +419,30 @@ def phase_default(device, smi):
 
     data = problems.banded_sdp(10000, 8, seed=0, sparse=True)[:5]
     out = {}
-    for dtype, rel in ((None, 1e-4), (np.float64, 1e-6)):
-        name = "float64" if dtype is not None else "float32"
-        model = pt.Model(pt.Settings(**NORTHSTAR, dtype=dtype), device=device).set(*data)
-        res, counts = counted_optimize(model)
-        out[name] = _check_default(model, res, counts, name, "cold", rel, smi)
-        if dtype is not None:
-            continue
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            windows = IterationWindows(caught)
-            try:
-                res = model.optimize(on_iter=windows)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        flagged = [w for w in caught if "synchroniz" in str(w.message)]
-        latch = (len(caught) if windows.warned_at_latch is None
-                 else windows.warned_at_latch)
-        per = windows.close(res.iter)
-        out["float32_profiled"] = dict(
-            status=res.status, iter=res.iter, windows=per, flagged_syncs=len(flagged),
-            flagged_before_latch=latch, syncs=model.last_solve["syncs"])
-        log(f"[default] float32 profiled: {res.status}, {res.iter} iters; device "
-            f"operations an iteration {per}; torch-flagged synchronizing calls "
-            f"{len(flagged)} ({latch} before the latch), solver host waits "
-            f"{model.last_solve['syncs']} [{smi}]")
-        if res.status != "Solved" or set(per) != {"plain", "refined"}:
-            raise AssertionError(f"default float32 profiled run: {res.status}, {per}")
+    model = pt.Model(pt.Settings(**NORTHSTAR), device=device).set(*data)
+    res, counts = counted_optimize(model)
+    out["float32"] = _check_default(model, res, counts, "float32", "cold", 1e-4, smi)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        windows = IterationWindows(caught)
+        try:
+            res = model.optimize(on_iter=windows)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    flagged = [w for w in caught if "synchroniz" in str(w.message)]
+    latch = (len(caught) if windows.warned_at_latch is None
+             else windows.warned_at_latch)
+    per = windows.close(res.iter)
+    out["float32_profiled"] = dict(
+        status=res.status, iter=res.iter, windows=per, flagged_syncs=len(flagged),
+        flagged_before_latch=latch, syncs=model.last_solve["syncs"])
+    log(f"[default] float32 profiled: {res.status}, {res.iter} iters; device "
+        f"operations an iteration {per}; torch-flagged synchronizing calls "
+        f"{len(flagged)} ({latch} before the latch), solver host waits "
+        f"{model.last_solve['syncs']} [{smi}]")
+    if res.status != "Solved" or set(per) != {"plain", "refined"}:
+        raise AssertionError(f"default float32 profiled run: {res.status}, {per}")
     return out
 
 
@@ -546,6 +589,188 @@ def phase_maxcut(device, smi):
     return out
 
 
+def portfolio_checks(P, q, A, b, k, res, opt, eps=PORTFOLIO["eps_abs"]):
+    """float64 host checks of a portfolio solution z = [x; y]: against the
+    solver's own stopping rule (unscaled inf-norms, eps_abs = eps_rel =
+    ``eps``) with twice its room, ||Az + s - b|| <= 2 (eps + eps
+    max(||Az||, ||s||, ||b||)) and ||Pz + q + A'y_dual|| <= 2 (eps + eps
+    max(||Pz||, ||q||, ||A'y_dual||)); s in the cones to 1e-12; the
+    returned objective equal to 1/2 z'Pz + q'z to 1e-9; the duality gap
+    z'Pz + q'z + b'y_dual + sum over the box rows of max(0, -y_dual) (the
+    support function of [0, 1]) within PORTFOLIO_GAP_TOL of the objective;
+    and the objective within twice that gap (plus 1e-4 relative) of the
+    optimum ``opt``. Returns (the measured values, whether the checks
+    hold)."""
+    z, yd, s = (np.asarray(v, np.float64) for v in (res.x, res.y, res.s))
+    Az, Pz, Aty = A @ z, P @ z, A.T @ yd
+    prim = np.abs(Az + s - b).max()
+    prim_limit = 2.0 * (eps + eps * max(np.abs(Az).max(), np.abs(s).max(), np.abs(b).max()))
+    cone = max(np.abs(s[:k + 1]).max(), max(-s[k + 1:].min(), s[k + 1:].max() - 1.0, 0.0))
+    stat = np.abs(Pz + q + Aty).max()
+    stat_limit = 2.0 * (eps + eps * max(np.abs(q).max(), np.abs(Pz).max(),
+                                        np.abs(Aty).max()))
+    obj = 0.5 * z @ Pz + q @ z
+    gap = z @ Pz + q @ z + b @ yd + np.maximum(0.0, -yd[k + 1:]).sum()
+    checks = dict(prim=float(prim), prim_limit=float(prim_limit), cone=float(cone),
+                  stat=float(stat), stat_limit=float(stat_limit),
+                  obj_host_rel=float(abs(res.obj_val - obj) / abs(obj)),
+                  rel_gap=float(gap / abs(obj)),
+                  rel_err=float((res.obj_val - opt) / abs(opt)),
+                  rel_err_limit=float((2.0 * abs(gap) + 1e-4 * abs(opt)) / abs(opt)))
+    ok = bool(prim <= prim_limit and cone <= 1e-12 and stat <= stat_limit
+              and checks["obj_host_rel"] <= 1e-9
+              and abs(checks["rel_gap"]) <= PORTFOLIO_GAP_TOL
+              and abs(checks["rel_err"]) <= checks["rel_err_limit"])
+    return checks, ok
+
+
+def phase_cg(device, smi, seed):
+    """Phase 8: the banded SDP through CG (a), the portfolio QP made from
+    ``seed`` through the auto CG route with a re-solve (b), its chunked
+    solve (c) and verbose_timing (d)."""
+    import cosmo_tpu_torch as pt
+    from cosmo_tpu_torch import problems
+    from cosmo_tpu_torch import solver as solver_mod
+    from cosmo_tpu_torch.models.model import refine_hint
+    from cosmo_tpu_torch.profile_slice import host_waits
+    from cosmo_tpu_torch.settings import split_settings
+
+    out = {}
+    # (a) the decomposed banded SDP through Coo + CG
+    data = problems.banded_sdp(10000, 8, seed=0, sparse=True)[:5]
+    model = pt.Model(pt.Settings(**BANDED_CG), device=device).set(*data)
+    res, counts = counted_optimize(model)
+    info, t = model.last_solve, res.times
+    err = abs(res.obj_val - REF_BANDED) / abs(REF_BANDED)
+    ips = res.iter / info["iter_time"]
+    waits = host_waits(info, res.iter)
+    row = dict(status=res.status, iter=res.iter, safeguarding_iter=res.safeguarding_iter,
+               obj=res.obj_val, rel_err=err, refine_iter=info["refine_iter"],
+               n_accelerated=info["n_accelerated"],
+               kkt_solver_iters=info["kkt_solver_iters"],
+               cg_per_iter=info["kkt_solver_iters"] / max(res.iter, 1),
+               kkt_reads=info["kkt_reads"], setup_s=t.setup_time, graph_s=t.graph_time,
+               solve_s=info["iter_time"], iter_per_s=ips, host_waits_per_iter=waits,
+               launches=counts["jacobi_proj"], projections=info["projections"])
+    out["banded_cg"] = row
+    log(f"[cg] banded_sdp(10000, 8) float32 through CG: {res.status}, {res.iter} iters "
+        f"({res.safeguarding_iter} safeguarding), {info['n_accelerated']} accelerated, "
+        f"refine latch at iteration {info['refine_iter']}, obj {res.obj_val:.12f} (rel "
+        f"err {err:.2e}, limit 1e-04); CG steps {info['kkt_solver_iters']} = "
+        f"{row['cg_per_iter']:.2f} an iteration, CG reads {info['kkt_reads']}; graph "
+        f"{t.graph_time:.3f} s, setup {t.setup_time:.3f} s, solve {info['iter_time']:.3f} s, "
+        f"{ips:.2f} iter/s, host waits an iteration {waits}; KKT {info['kkt_solver']}, A "
+        f"{info['A_layout']}, PSD backend {info['bucket_backends']}, launches {counts} / "
+        f"projections {info['projections']} [{smi}]")
+    if res.status != "Solved" or not err <= 1e-4:
+        raise AssertionError(f"banded cg: {res.status}, obj {res.obj_val}")
+    if (info["kkt_solver"] != "cg" or info["A_layout"] != "Coo"
+            or model._dev_cache["kkt_precond"] is None
+            or info["bucket_backends"] != ("pallas",) or info["kkt_refine_steps"] != 1
+            or not info["refine_iter"] > 0):
+        raise AssertionError(f"banded cg left its path: {info}")
+    if not counts["jacobi_proj"] == info["projections"] > 0 or counts["jacobi_proj_rr"]:
+        raise AssertionError(f"banded cg: {counts} kernel launches for "
+                             f"{info['projections']} projections")
+
+    # (b) the portfolio QP: cold at gamma = 1, then warm re-solves
+    k = PORTFOLIO_K
+    t0 = time.perf_counter()
+    P, q, A, b, sets = problems.portfolio(k, 1.0, seed=seed)
+    _, _, mu = problems.portfolio_data(k, seed=seed)
+    gen_s = time.perf_counter() - t0
+    model = pt.Model(pt.Settings(**PORTFOLIO), device=device).set(P, q, A, b, sets)
+    runs = {}
+
+    def solve(label, gamma, qv):
+        res = model.optimize()
+        info, t = model.last_solve, res.times
+        opt = (PORTFOLIO_OPT[gamma] if seed == 0
+               else problems.portfolio_optimum(k, gamma, seed)[0])
+        checks, ok = portfolio_checks(P, qv, A, b, k, res, opt)
+        row = dict(status=res.status, iter=res.iter, safeguarding_iter=res.safeguarding_iter,
+                   obj=res.obj_val, optimum=opt, kkt_solver=info["kkt_solver"],
+                   kkt_solver_iters=info["kkt_solver_iters"],
+                   cg_per_iter=info["kkt_solver_iters"] / max(res.iter, 1),
+                   kkt_reads=info["kkt_reads"], refine_iter=info["refine_iter"],
+                   setup_s=t.setup_time, solve_s=info["iter_time"],
+                   iter_per_s=res.iter / info["iter_time"],
+                   host_waits_per_iter=host_waits(info, res.iter), checks=checks,
+                   checks_ok=ok)
+        runs[label] = row
+        log(f"[cg] portfolio k={k} {label}: {res.status}, {res.iter} iters, obj "
+            f"{res.obj_val:.10f} ({checks['rel_err']:.2e} relative of the optimum {opt!r}, "
+            f"limit {checks['rel_err_limit']:.2e}: twice the duality gap "
+            f"{checks['rel_gap']:.2e}, limit {PORTFOLIO_GAP_TOL:.0e}), KKT "
+            f"{info['kkt_solver']}, CG steps "
+            f"{info['kkt_solver_iters']} ({row['cg_per_iter']:.1f} an iteration, reads "
+            f"{info['kkt_reads']}), refine latch at {info['refine_iter']}, setup "
+            f"{t.setup_time:.3f} s, solve {info['iter_time']:.3f} s, "
+            f"{row['iter_per_s']:.2f} iter/s, host waits an iteration "
+            f"{row['host_waits_per_iter']}, checks {checks} [{smi}]")
+        if res.status != "Solved" or info["kkt_solver"] != "cg" or not ok:
+            raise AssertionError(f"portfolio {label}: {res.status}, {info['kkt_solver']}, "
+                                 f"obj {res.obj_val} against {opt}, {checks}")
+        return res
+
+    cold = solve("gamma=1 cold", 1.0, q)
+    runs["gamma=1 cold"]["gen_s"] = gen_s
+    if seed == 0:
+        err = (cold.obj_val - REF_PORTFOLIO) / abs(REF_PORTFOLIO)
+        runs["gamma=1 cold"]["rel_to_reference"] = err
+        log(f"[cg] portfolio gamma=1: {err:.2e} relative of the JAX package's "
+            f"{REF_PORTFOLIO!r} at the same settings (itself "
+            f"{(REF_PORTFOLIO - PORTFOLIO_OPT[1.0]) / abs(PORTFOLIO_OPT[1.0]):.2e} of the "
+            f"optimum)")
+
+    # (c) the same problem in chunks of 100 iterations through the carry
+    dev = model._dev_cache
+    m, n = model.model_size
+    static, dyn = split_settings(model._resolved_settings, m, n, dev["qd"].dtype,
+                                 refine_hint=refine_hint(sets), device=device)
+    t1 = time.perf_counter()
+    chunked = solver_mod.solve_chunked(dev["Pd"], dev["Ad"], dev["qd"], dev["bd"],
+                                       dev["cones"], dev["x0"], dev["s0"], dev["mu0"],
+                                       dyn, static, chunk=100)
+    chunk_s = time.perf_counter() - t1
+    rel = abs(chunked["cost"] - cold.obj_val) / abs(cold.obj_val)
+    same = bool(np.array_equal(chunked["x"], cold.x))
+    out["chunked"] = dict(status=chunked["status"], iter=chunked["iter"],
+                          obj=chunked["cost"], rel_to_uninterrupted=rel, solve_s=chunk_s,
+                          kkt_solver_iters=chunked["kkt_solver_iters"], x_bit_identical=same)
+    log(f"[cg] portfolio gamma=1 in chunks of 100: status {chunked['status']}, "
+        f"{chunked['iter']} iters (uninterrupted {cold.iter - cold.safeguarding_iter}), CG "
+        f"steps {chunked['kkt_solver_iters']} (uninterrupted "
+        f"{runs['gamma=1 cold']['kkt_solver_iters']}), obj {chunked['cost']:.12f}, rel "
+        f"{rel:.2e} of the uninterrupted (limit 1e-05), x bit-identical {same}, "
+        f"{chunk_s:.3f} s")
+    if chunked["status"] != 1 or not rel <= 1e-5:
+        raise AssertionError(f"chunked portfolio: {out['chunked']}")
+
+    # the re-solve: update(q) and a warm start from the cold solution, (d)
+    # with the phase timers on
+    qv = problems.portfolio_q(mu, k, PORTFOLIO_GAMMA)
+    model.update(q=qv).warm_start(x0=cold.x, y0=cold.y, s0=cold.s)
+    model.settings = model.settings.replace(verbose_timing=True)
+    warm = solve(f"gamma={PORTFOLIO_GAMMA:g} warm", PORTFOLIO_GAMMA, qv)
+    times = warm.times
+    timers = {n_: getattr(times, n_) for n_ in (
+        "scaling_time", "init_factor_time", "factor_update_time", "proj_time",
+        "update_time", "accelerate_time")}
+    out["verbose_timing"] = timers
+    log(f"[cg] verbose_timing of the gamma={PORTFOLIO_GAMMA:g} re-solve: {timers}")
+    log(f"[cg] portfolio k={k}: generated in {gen_s:.2f} s")
+    # CG has no factor: its two factor timers are 0.0 by the reference's rule
+    if not all(np.isfinite(v) for v in timers.values()) or not all(
+            timers[n_] > 0 for n_ in ("scaling_time", "proj_time", "update_time",
+                                      "accelerate_time")):
+        raise AssertionError(f"verbose_timing: {timers}")
+    log("[cg] portfolio iterations, cold gamma=1 against warm: " + ", ".join(
+        f"{lab} {r['iter']}" for lab, r in runs.items()))
+    out["portfolio"] = runs
+    return out
+
+
 def phase_known_answers(device):
     """The known answers of the verify notes, float64 on ``device``."""
     import cosmo_tpu_torch as pt
@@ -601,6 +826,7 @@ def phase_known_answers(device):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="directory for chip_smoke.json")
+    parser.add_argument("--seed", type=int, default=0, help="the portfolio data's seed")
     args = parser.parse_args(argv)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -628,22 +854,26 @@ def main(argv=None):
     decomposed = timed("decomposed", lambda: phase_decomposed(device, smi))
     default = timed("default", lambda: phase_default(device, smi))
     maxcut = timed("maxcut", lambda: phase_maxcut(device, smi))
+    cg = timed("cg", lambda: phase_cg(device, smi, args.seed))
     seconds["total"] = time.perf_counter() - t0
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
 
     # each kernel at the shape of its path, with that path's launches:
     # jacobi_proj on the banded default path (B = 2498, k = 16, float32,
-    # phase 6) and on the maxcut-10k path (B = 8540, k = 8,
-    # float32, phase 7), jacobi_proj_rr under COSMO_TPU_PALLAS_RR (B = 2498,
-    # k = 16, float64, phase 5's warm solve)
+    # phase 6), on the maxcut-10k path (B = 8540, k = 8, float32, phase 7)
+    # and on the banded-CG path (B = 2498, k = 16, float32, phase 8a),
+    # jacobi_proj_rr under COSMO_TPU_PALLAS_RR (B = 2498, k = 16, float64,
+    # phase 5's warm solve)
     kernels = []
-    for name, replaces, dtype_name, B, k, launches in (
+    for name, replaces, dtype_name, B, k, path, launches in (
             ("jacobi_proj", "cosmo_tpu/ops/pallas_eigh.py:132", "float32", 2498, 16,
-             default["float32"]["launches"]),
+             "banded_default", default["float32"]["launches"]),
             ("jacobi_proj", "cosmo_tpu/ops/pallas_eigh.py:132", "float32", 8540, 8,
-             maxcut["maxcut-10000"]["launches"]),
+             "maxcut-10000", maxcut["maxcut-10000"]["launches"]),
+            ("jacobi_proj", "cosmo_tpu/ops/pallas_eigh.py:132", "float32", 2498, 16,
+             "banded_cg", cg["banded_cg"]["launches"]),
             ("jacobi_proj_rr", "cosmo_tpu/ops/pallas_eigh.py:69", "float64", 2498, 16,
-             decomposed["jacobi_proj_rr_warm"]["launches"])):
+             "banded", decomposed["jacobi_proj_rr_warm"]["launches"])):
         row = next(r for r in kernel_rows if r["kernel"] == name
                    and r["dtype"] == dtype_name and r["k"] == k and r["B"] == B)
         kernels.append(dict(
@@ -656,6 +886,7 @@ def main(argv=None):
             ms=row["ms"],
             device_ms=row["device_ms"],
             shape=dict(B=B, k=k, dtype=dtype_name),
+            path=path,
             plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"],
             bound_by=row["bound_by"],
@@ -667,8 +898,8 @@ def main(argv=None):
             json.dump(dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                            seconds=seconds, kernel=kernel_rows, slice=slice_out,
                            known=known, decomposed=decomposed, default=default,
-                           maxcut=maxcut, kernels=kernels),
-                      f, indent=1)
+                           maxcut=maxcut, cg=cg, kernels=kernels),
+                      f, indent=1, default=str)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

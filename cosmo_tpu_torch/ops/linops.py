@@ -6,9 +6,9 @@ through one interface over
 
 * a dense ``torch.Tensor`` [m, n];
 * :class:`Coo` — the triplets twice, sorted by row (for ``A @ x``) and by
-  column (for ``A.T @ y``); a matvec is a gather, a product and an
-  ``index_add_`` over the sorted segment ids. The decomposed problems that
-  take the block-diagonal KKT hold P and A this way;
+  column (for ``A.T @ y``); a matvec is a gather, a product and a sum per
+  sorted segment (:func:`_coo_segment_sum`). The decomposed problems and
+  other sparse input hold P and A this way;
 * :class:`Bde` — G contiguous groups of ``rb`` rows, each over at most
   ``cmax`` columns (one PSD block of a block-structured SDP per group), so
   a matvec is one small column selection plus a batched [rb, cmax] product.
@@ -224,10 +224,32 @@ def _segment_amax(vals, ids, num: int):
     return vals.new_zeros(num).scatter_reduce_(0, ids, vals, "amax")
 
 
+# a Coo copy whose widest segment has this many entries or more sums its
+# segments with torch.segment_reduce, else with index_add_ (measured on an
+# H100 by profile_cg.py on the same inputs: index_add_ 4.5-21 times faster
+# on the banded and maxcut A (widest 2-10; segment_reduce's cost grows with
+# the segment count), even at the portfolio's A'y (widest 128),
+# segment_reduce 15 times faster on its A x (widest 20,000), where
+# index_add_'s float atomics serialize on each row)
+SEGMENT_REDUCE_WIDTH = 128
+
+
+def _coo_segment_sum(prod, ids, ptr, num: int, widest: int):
+    """The sum of each of the ``num`` segments of ``prod``, a sorted copy's
+    products (the reference's ``segment_sum``): ``index_add_`` over the
+    sorted ``ids``, or ``torch.segment_reduce`` over the pointers ``ptr``
+    where the ``widest`` segment reaches ``SEGMENT_REDUCE_WIDTH``. Both
+    give the same bits on the CPU; ``segment_reduce`` has no atomics, so on
+    a CUDA device its bits are the same on every run."""
+    if widest >= SEGMENT_REDUCE_WIDTH:
+        return torch.segment_reduce(prod, "sum", offsets=ptr, unsafe=True)
+    return _segment_sum(prod, ids, num)
+
+
 def matvec(A, x):
     """A @ x."""
     if isinstance(A, Coo):
-        return _segment_sum(A.vals * x[A.cols], A.rows, A.m)
+        return _coo_segment_sum(A.vals * x[A.cols], A.rows, A.row_ptr, A.m, A.max_row_nnz)
     if isinstance(A, Bde):
         if A.sel is not None:
             xg = (A.sel @ x).reshape(A.G, A.cmax)
@@ -240,7 +262,8 @@ def matvec(A, x):
 def rmatvec(A, y):
     """A.T @ y."""
     if isinstance(A, Coo):
-        return _segment_sum(A.cvals * y[A.crows], A.ccols, A.n)
+        return _coo_segment_sum(A.cvals * y[A.crows], A.ccols, A.col_ptr, A.n,
+                                A.max_col_nnz)
     if isinstance(A, Bde):
         t = torch.einsum("gcr,gr->gc", A.vals_t, y.reshape(A.G, A.rb))
         if A.sel is not None:
@@ -328,15 +351,16 @@ def diag_part(P):
     """diag(P) as a vector."""
     if isinstance(P, Coo):
         on_diag = P.rows == P.cols
-        return _segment_sum(torch.where(on_diag, P.vals, torch.zeros_like(P.vals)),
-                            P.rows, P.m)
+        return _coo_segment_sum(torch.where(on_diag, P.vals, torch.zeros_like(P.vals)),
+                                P.rows, P.row_ptr, P.m, P.max_row_nnz)
     return torch.diagonal(P)
 
 
 def diag_AtRhoA(A, rho_vec):
     """diag(A' diag(rho) A) = sum_i rho_i A_ij^2 per column j."""
     if isinstance(A, Coo):
-        return _segment_sum(rho_vec[A.crows] * A.cvals * A.cvals, A.ccols, A.n)
+        return _coo_segment_sum(rho_vec[A.crows] * A.cvals * A.cvals, A.ccols, A.col_ptr,
+                                A.n, A.max_col_nnz)
     if isinstance(A, Bde):
         t = torch.einsum("grc,gr,grc->gc", A.vals, rho_vec.reshape(A.G, A.rb),
                          A.vals)

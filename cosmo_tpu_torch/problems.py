@@ -218,3 +218,110 @@ def _dual_form_sdp(Lap: np.ndarray, dtype, sparse: bool = False):
         b = -svec(Lap.astype(dtype)) / 4.0
     sets = [C.PsdConeTriangle(m)]
     return P, q, A, b, sets
+
+
+def portfolio_data(k: int, seed: int = 0, n: int | None = None):
+    """The factor model of the OSQP benchmark suite's portfolio problem
+    (osqp_benchmarks, problem_classes/portfolio.py): n = 100 k assets
+    unless given, a sparse n x k factor loading F (density 0.5, normal
+    entries), the diagonal idiosyncratic risk D = rand(n) sqrt(k) and the
+    normal expected returns mu. Returns (F as scipy CSR, diag(D), mu)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    n = 100 * k if n is None else n
+    F = sp.random(n, k, density=0.5, format="csr", random_state=rng,
+                  data_rvs=rng.standard_normal)
+    D = rng.random(n) * np.sqrt(k)
+    mu = rng.standard_normal(n)
+    return F, D, mu
+
+
+def portfolio_q(mu: np.ndarray, k: int, gamma: float = 1.0) -> np.ndarray:
+    """The linear cost [-mu / gamma; 0] of :func:`portfolio`."""
+    return np.concatenate([-mu / gamma, np.zeros(k)])
+
+
+def portfolio(k: int, gamma: float = 1.0, seed: int = 0, n: int | None = None):
+    """min x'Dx + y'y - mu'x / gamma  s.t.  y = F'x, 1'x = 1, 0 <= x <= 1
+    over [x; y] (osqp_benchmarks' portfolio QP), in internal ``Ax + s = b``
+    form: a ZeroSet of k + 1 rows ([F', -I] and [1', 0]) and a Box of n
+    rows (s = x in [0, 1]). Sparse and coupled: every x column meets the
+    k factor rows. Returns (P, q, A, b, sets) with scipy CSR P and A."""
+    import scipy.sparse as sp
+
+    F, D, mu = portfolio_data(k, seed, n)
+    n = F.shape[0]
+    P = sp.block_diag((sp.diags(2.0 * D), 2.0 * sp.identity(k)), format="csr")
+    A = sp.vstack([
+        sp.hstack([F.T, -sp.identity(k)]),
+        sp.hstack([sp.csr_matrix(np.ones((1, n))), sp.csr_matrix((1, k))]),
+        sp.hstack([-sp.identity(n), sp.csr_matrix((n, k))]),
+    ], format="csr")
+    b = np.concatenate([np.zeros(k), [1.0], np.zeros(n)])
+    sets = [C.ZeroSet(k + 1), C.Box(np.zeros(n), np.ones(n))]
+    return P, portfolio_q(mu, k, gamma), A, b, sets
+
+
+def portfolio_optimum(k: int, gamma: float = 1.0, seed: int = 0, n: int | None = None,
+                      tol: float = 1e-13, max_iter: int = 100):
+    """The optimum of :func:`portfolio` to ~1e-12, independent of the ADMM
+    solver: a primal-dual interior-point method (Mehrotra's predictor and
+    corrector) in float64 on the host over x alone (y = F'x eliminated):
+    min x'(D + FF')x - mu'x / gamma s.t. 1'x = 1, 0 <= x <= 1. Each Newton
+    system is diag + 2FF' and one equality, solved through the Woodbury
+    identity with a k x k Cholesky factor. Returns (objective, x); raises
+    if the complementarity gap does not fall below ``tol``."""
+    F, D, mu = portfolio_data(k, seed, n)
+    F = F.toarray()
+    n = F.shape[0]
+    c = -mu / gamma
+    x = np.full(n, 1.0 / n)
+    z = np.ones(n)           # multipliers of x >= 0
+    w = np.ones(n)           # multipliers of x <= 1
+    nu = 0.0                 # multiplier of 1'x = 1
+
+    def newton(rd, rp, rz, rw, x, z, w):
+        """(dx, dnu, dz, dw) for the linearized KKT conditions with right
+        sides -rd, -rp, -rz, -rw."""
+        u = 1.0 - x
+        delta = 2.0 * D + z / x + w / u
+        fd = F / delta[:, None]
+        chol = np.linalg.cholesky(0.5 * np.eye(k) + F.T @ fd)
+
+        def minv(v):
+            t = np.linalg.solve(chol.T, np.linalg.solve(chol, F.T @ (v / delta)))
+            return v / delta - fd @ t
+
+        r1 = -rd - rz / x + rw / u
+        m1, ma = minv(r1), minv(np.ones(n))
+        dnu = (-rp - m1.sum()) / ma.sum()
+        dx = m1 + dnu * ma
+        return dx, dnu, -(rz + z * dx) / x, (-rw + w * dx) / u
+
+    def step(v, dv):
+        neg = dv < 0
+        return min(1.0, np.min(-v[neg] / dv[neg])) if neg.any() else 1.0
+
+    for _ in range(max_iter):
+        u = 1.0 - x
+        hx = 2.0 * D * x + 2.0 * F @ (F.T @ x)
+        rd = hx + c - nu - z + w
+        rp = x.sum() - 1.0
+        mu_gap = (z @ x + w @ u) / (2 * n)
+        if mu_gap < tol and np.abs(rd).max() < tol * 1e3 and abs(rp) < 1e-10:
+            return float(0.5 * x @ hx + c @ x), x
+        # predictor (affine scaling), then the centred corrector
+        ax, _, az, aw = newton(rd, rp, z * x, w * u, x, z, w)
+        a_p = min(step(x, ax), step(u, -ax))
+        a_d = min(step(z, az), step(w, aw))
+        mu_aff = ((z + a_d * az) @ (x + a_p * ax)
+                  + (w + a_d * aw) @ (u - a_p * ax)) / (2 * n)
+        sigma = (mu_aff / mu_gap) ** 3
+        dx, dnu, dz, dw = newton(rd, rp, z * x + ax * az - sigma * mu_gap,
+                                 w * u - ax * aw - sigma * mu_gap, x, z, w)
+        a_p = 0.99 * min(step(x, dx), step(u, -dx))
+        a_d = 0.99 * min(step(z, dz), step(w, dw))
+        x = x + a_p * dx
+        nu, z, w = nu + a_d * dnu, z + a_d * dz, w + a_d * dw
+    raise RuntimeError(f"portfolio_optimum: no convergence in {max_iter} iterations")

@@ -7,9 +7,15 @@ choices, read on the host) and a *dynamic* part (floats held as 0-d tensors
 on the solve's device, in the solve's dtype).
 
 Options that only steer the TPU program are accepted for keyword parity and
-have no effect here: ``profile_dir``, ``dispatch_chunk`` and
-``matmul_precision`` (float32 products always run in full float32: the
-solve sets ``torch.backends.cuda.matmul.allow_tf32 = False``).
+have no effect here: ``profile_dir``, ``dispatch_chunk`` (the loop is a
+host loop; ``solver.solve_chunked(chunk=N)`` runs N-iteration chunks when
+asked) and ``matmul_precision`` (float32 products always run in full
+float32: the solve sets ``torch.backends.cuda.matmul.allow_tf32 = False``).
+Every other option takes effect as in ``cosmo_tpu``, ``verbose_timing``
+and ``adaptive_rho_interval=0`` (the timed probe) included; the few that
+need a part not ported yet (``mixed_precision``, a custom KKT solver, the
+amortized and ``jacobi_mm`` backends) raise ``NotImplementedError`` when a
+solve uses them.
 """
 from __future__ import annotations
 

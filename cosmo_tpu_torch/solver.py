@@ -1,5 +1,6 @@
-"""The ADMM core (the port of ``cosmo_tpu.solver.solve`` with the dense or
-the block-diagonal KKT).
+"""The ADMM core (the port of ``cosmo_tpu.solver``: ``solve`` with the
+dense, the block-diagonal or the matrix-free CG/MINRES KKT, its resumable
+carry, and ``solve_chunked``).
 
 Reference call stack: src/solver.jl:78-203 (optimize!), :7-65 (admm_z!/
 admm_x!/admm_w!), :242-292 (rho adaptation), :303-356 (termination),
@@ -28,19 +29,27 @@ only where the reference's control flow needs a device value:
   projection are queued.
 
 So the card works on the queued projection while the host waits for a
-flag.
+flag. With CG or MINRES the KKT solve adds one host read of its loop
+condition per block of steps (``ops/kkt.py``).
 
 With the block-diagonal KKT (``ops/blockkkt.py``) the x half of the
 operator variable lives in the block-space layout for the whole loop (the
 block-space x carry of ``cosmo_tpu.solver``): n-space x is materialized
 only at the checks and at exit.
+
+A solve can stop and resume: ``return_carry=True`` returns the loop state
+(:class:`LoopCarry`, the device tensors with the host counters and flags)
+and the set-up outputs (:class:`SetupState`); ``carry_in``/``setup_in``
+continue from them, skipping the scaling, so a solve run in chunks of
+``max_iter`` (:func:`solve_chunked`) follows the trajectory of one
+uninterrupted solve.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -54,7 +63,7 @@ from .ops import residuals as res_ops
 from .ops import scaling as scaling_ops
 from .ops.conedata import not_ported
 from .ops.linops import Coo
-from .settings import DynConfig, StaticConfig, KKT_BLOCK, KKT_DENSE
+from .settings import DynConfig, StaticConfig, KKT_BLOCK, KKT_CG, KKT_DENSE, KKT_MINRES
 
 RHO_LOG_LEN = 64
 
@@ -119,10 +128,8 @@ def _classify_rows(cones, b, lb, ub, dyn):
 def check_supported(static: StaticConfig):
     """Raise NotImplementedError for a configuration this solver lacks."""
     if not isinstance(static.kkt_solver, str) or static.kkt_solver not in (
-            KKT_DENSE, KKT_BLOCK):
-        raise not_ported(f"kkt_solver={static.kkt_solver!r}",
-                         "Coo + CG" if static.kkt_solver in ("cg", "minres")
-                         else "custom KKT solvers")
+            KKT_DENSE, KKT_BLOCK, KKT_CG, KKT_MINRES):
+        raise not_ported(f"kkt_solver={static.kkt_solver!r}", "custom KKT solvers")
     if static.mixed_precision:
         raise not_ported("mixed_precision=True", "mixed precision")
 
@@ -174,9 +181,25 @@ class _FlagReader:
         return self.value
 
 
+class SetupState(NamedTuple):
+    """The set-up outputs on the device: the scaled problem data and the row
+    classes. A resumed solve takes them back and skips the Ruiz scaling."""
+
+    P: Any
+    A: Any
+    q: Any
+    b: Any
+    lb: Any
+    ub: Any
+    sm: Any              # ScaleMats
+    rho_class: Any
+
+
 @dataclasses.dataclass
-class _Loop:
-    """Loop state: device tensors, plus the host-side counters and flags."""
+class LoopCarry:
+    """Loop state: device tensors, plus the host-side counters and flags. A
+    solve with ``return_carry=True`` returns it; ``carry_in`` resumes from
+    it (and consumes it: the resumed loop updates it in place)."""
 
     w: Any
     w_prev: Any
@@ -200,6 +223,10 @@ class _Loop:
     due_age: Any = None  # device int32: iterations a deferred rho update starved
     ref_stall: Any = None  # device int32: stagnant checks while refinement is off
     ref_best: Any = None   # best residual score seen while refinement is off
+    sol: Any = None      # [n+m] last KKT solution, the CG/MINRES warm start
+    kkt_iters: Any = None  # device int32: inner CG/MINRES steps
+    redo_reader: Any = None   # _FlagReader of ``redo``
+    plain_reader: Any = None  # _FlagReader: this pass did not accelerate
     it: int = 0
     sg_iter: int = 0     # safeguarding (redo) passes
     status: int = results.UNDETERMINED
@@ -216,34 +243,44 @@ class _Loop:
     n_rho_adapt: int = 0
     hist_n: int = 0
     projections: int = 0
-    syncs: int = 0       # host waits for the device, the flag reads aside
+    syncs: int = 0       # host waits for the device, the flag and CG reads aside
+    kkt_reads: int = 0   # host reads of the CG/MINRES loop condition
 
 
 def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
           kkt_block=None, rho_row_scale=None,
           on_iter: Optional[Callable[[int, bool], None]] = None,
-          deadline: Optional[float] = None):
+          deadline: Optional[float] = None, kkt_precond=None, carry_in=None,
+          return_carry: bool = False, setup_in=None):
     """Full solve of ``min 1/2 x'Px + q'x s.t. Ax + s = b, s in K`` on the
     device of ``q``, with float32 products in full float32. ``cones`` is a
     device ConeData. With the dense KKT, ``P`` is a dense tensor and ``A``
     dense or :class:`~cosmo_tpu_torch.ops.linops.Bde`; with ``kkt_solver ==
     "blockdiag"`` both are :class:`~cosmo_tpu_torch.ops.linops.Coo` and
     ``kkt_block`` is the device :class:`~cosmo_tpu_torch.ops.blockkkt.
-    BlockKKTMeta`. ``rho_row_scale``: an optional static per-row rho scale.
-    ``on_iter(iteration, refine_on)``, if given, is called on the host after
-    every pass (a profiling hook). ``deadline``: a ``time.perf_counter()``
-    value; a termination check that finds the solve undecided past it ends
-    ``Time_limit_reached`` with the iterate of that check (the reference's
-    wall-clock check, solver.jl:303-321). Returns a dict of host values
-    (numpy arrays and Python numbers)."""
+    BlockKKTMeta`; with ``"cg"`` or ``"minres"`` both are dense or both
+    ``Coo``, and CG takes the optional ``kkt_precond``
+    (:class:`~cosmo_tpu_torch.ops.kkt.OverlapPrecond`). ``rho_row_scale``:
+    an optional static per-row rho scale. ``on_iter(iteration, refine_on)``,
+    if given, is called on the host after every pass (a profiling hook).
+    ``deadline``: a ``time.perf_counter()`` value; a termination check that
+    finds the solve undecided past it ends ``Time_limit_reached`` with the
+    iterate of that check (the reference's wall-clock check,
+    solver.jl:303-321). ``carry_in``/``setup_in``: the ``"carry"`` and
+    ``"setup"`` of an earlier ``return_carry=True`` solve of the same
+    problem; the loop resumes from them (``x0``, ``s0`` and ``mu0`` are then
+    ignored) and runs until ``dyn.max_iter`` counts all its iterations.
+    Returns a dict of host values (numpy arrays and Python numbers), plus
+    ``"carry"`` and ``"setup"`` with ``return_carry``."""
     check_supported(static)
     with _full_f32_matmuls():
         return _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block,
-                      rho_row_scale, on_iter, deadline)
+                      rho_row_scale, on_iter, deadline, kkt_precond, carry_in,
+                      return_carry, setup_in)
 
 
 def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale,
-           on_iter, deadline):
+           on_iter, deadline, kkt_precond, carry_in, return_carry, setup_in):
     m, n = static.m, static.n
     dtype, device = q.dtype, q.device
     accel_on = static.accel_mem > 0
@@ -252,7 +289,9 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
     # ------------------------------------------------------------------
     # Setup (reference: solver.jl:96-138, setup.jl)
     # ------------------------------------------------------------------
-    if static.scaling_iters > 0:
+    if setup_in is not None:
+        P, A, q, b, lb, ub, sm, rho_class = setup_in
+    elif static.scaling_iters > 0:
         P, A, q, b, lb, ub, sm = scaling_ops.ruiz_scale(
             P, A, q, b, cones, static.scaling_iters, dyn
         )
@@ -260,12 +299,9 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
         sm = scaling_ops.identity_scale(m, n, dtype, device)
         lb, ub = cones.lb, cones.ub
     cones = dataclasses.replace(cones, lb=lb, ub=ub)
-    x, mu, s0v = scaling_ops.scale_variables(x0, mu0, s0, sm)
-    rho_class = _classify_rows(cones, b, lb, ub, dyn)
-    rho = dyn.rho.clone()
-    rho_vec = _make_rho_vec(rho, rho_class, dyn, rho_row_scale)
-    rho_log = torch.zeros(RHO_LOG_LEN, dtype=dtype, device=device)
-    rho_log[0] = rho
+    if setup_in is None:
+        rho_class = _classify_rows(cones, b, lb, ub, dyn)
+    setup = SetupState(P, A, q, b, lb, ub, sm, rho_class)
 
     # the periodic residual measurements ride the compensated matvecs once
     # the refine latch is on (before it, plain-f32 measurements are as
@@ -277,6 +313,7 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
     refine_gated = static.kkt_refine_gated and static.kkt_refine_steps > 0
 
     use_block = static.kkt_solver == KKT_BLOCK
+    use_cg = static.kkt_solver in (KKT_CG, KKT_MINRES)
     if use_block and kkt_block is None:
         raise ValueError("kkt_solver='blockdiag' needs the BlockKKTMeta "
                          "structure (pass kkt_block=blockkkt.analyze(P, A))")
@@ -330,80 +367,132 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
             Einv_v, x_to_block(Dv), cinv_v, Px_pair_g, covered=res_covered)
 
     def kkt_setup(rho_vec):
+        if use_cg:
+            return None                       # matrix-free: no factor
         if use_block:
             return blockkkt.factor(kkt_block, P, A, dyn.sigma, rho_vec,
                                    build_pair=static.kkt_refine_steps > 0)
         # the explicit-inverse apply is plain-ADMM-only (kkt.dense_factor)
         return kkt_ops.dense_factor(P, A, dyn.sigma, rho_vec, not accel_on)
 
-    def kkt_solve(kkt, rho_vec, r1, r2, refine_on):
+    # CG's blocks of steps as one CUDA graph replay each on the card
+    cg_graph = (kkt_ops.CGGraph() if static.kkt_solver == KKT_CG and device.type == "cuda"
+                else None)
+
+    def kkt_solve(kkt, rho_vec, r1, r2, refine_on, sol_prev, admm_iter, res_min):
+        """(x_tilde, nu, CG steps or None, host reads)"""
         steps = static.kkt_refine_steps if (refine_on or not refine_gated) else 0
+        if use_cg:
+            sched = kkt_ops.cg_tolerance(admm_iter, dyn)
+            if static.kkt_solver == KKT_MINRES:
+                return kkt_ops.minres_solve(P, A, dyn.sigma, rho_vec, r1, r2,
+                                            sol_prev[:n], sched, res_min,
+                                            static.kkt_cg_max_iter, steps)
+            return kkt_ops.cg_solve(P, A, dyn.sigma, rho_vec, r1, r2, sol_prev[:n],
+                                    sched, res_min, static.kkt_cg_max_iter, steps,
+                                    precond=kkt_precond, graph=cg_graph)
         if use_bspace:
-            return blockkkt.solve_blockspace(kkt_block, kkt, rho_vec, r1, r2, steps)
-        if use_block:
-            return blockkkt.solve(kkt_block, kkt, P, A, dyn.sigma, rho_vec, r1, r2,
-                                  steps)
-        return kkt_ops.dense_solve(kkt, P, A, dyn.sigma, rho_vec, r1, r2, steps)
+            xt, nu = blockkkt.solve_blockspace(kkt_block, kkt, rho_vec, r1, r2, steps)
+        elif use_block:
+            xt, nu = blockkkt.solve(kkt_block, kkt, P, A, dyn.sigma, rho_vec, r1, r2,
+                                    steps)
+        else:
+            xt, nu = kkt_ops.dense_solve(kkt, P, A, dyn.sigma, rho_vec, r1, r2, steps)
+        return xt, nu, None, 0
 
-    kkt = kkt_setup(rho_vec)
-
-    def admm_x_w(w, s, kkt, rho_vec, refine_on):
+    def admm_x_w(w, s, kkt, rho_vec, refine_on, sol_prev=None, admm_iter=1,
+                 res_min=None):
         """admm_x! then admm_w! (solver.jl:32-65); the x half of w lives in
-        block space when ``use_bspace`` (q rides along as ``qx``)."""
+        block space when ``use_bspace`` (q rides along as ``qx``). Returns
+        (w, the [n+m] KKT solution with CG or None, CG steps, host reads)."""
         r1 = dyn.sigma * w[:nx] - qx
         r2 = b - 2.0 * s + w[nx:]
-        xt, nu = kkt_solve(kkt, rho_vec, r1, r2, refine_on)
+        xt, nu, k, reads = kkt_solve(kkt, rho_vec, r1, r2, refine_on, sol_prev,
+                                     admm_iter, res_min)
         s_tl = 2.0 * s - w[nx:] - nu / rho_vec
         w1 = w[:nx] + dyn.alpha * (xt - w[:nx])
         w2 = w[nx:] + dyn.alpha * (s_tl - s)
-        return torch.cat([w1, w2])
+        return torch.cat([w1, w2]), (torch.cat([xt, nu]) if use_cg else None), k, reads
+
+    def cg_res_min(c: LoopCarry):
+        """the CG target's ADMM residual (None without CG)"""
+        return torch.minimum(c.res.r_prim, c.res.r_dual) if use_cg else None
+
+    def count_cg(c: LoopCarry, k, reads):
+        if use_cg:
+            c.kkt_iters, c.kkt_reads = c.kkt_iters + k, c.kkt_reads + reads
+
+    def main_step(c: LoopCarry, admm_iter):
+        """The ADMM step of this pass: w, and with CG its warm start and
+        counters."""
+        c.w, sol, k, reads = admm_x_w(c.w, c.s, c.kkt, c.rho_vec, c.refine_on,
+                                      c.sol, admm_iter, cg_res_min(c))
+        if use_cg:
+            c.sol = sol
+        count_cg(c, k, reads)
 
     def recover_mu(w_prev, s, rho_vec):
         """Moreau: mu = rho (w - Pi(w)) (solver.jl:23-26)."""
         return rho_vec * (w_prev[nx:] - s)
 
-    def project(c: _Loop, v):
+    def project(c: LoopCarry, v):
         c.projections += 1
         return projections.project(v, cones)
 
-    def host(c: _Loop, t):
+    def host(c: LoopCarry, t):
         """A device tensor's values on the host: one wait."""
         c.syncs += 1
         return t.tolist()
 
-    # initial half-step so iterates agree with standard ADMM (solver.jl:125-138)
-    refine_on0 = not refine_gated
-    w0 = admm_x_w(torch.cat([x_to_block(x), s0v + mu / rho_vec]), s0v, kkt, rho_vec,
-                  refine_on0)
     big = torch.full((), float("inf"), dtype=dtype, device=device)
-    zero = torch.zeros((), dtype=dtype, device=device)
-    izero = torch.zeros((), dtype=torch.int32, device=device)
-    c = _Loop(
-        w=w0, w_prev=w0, s=s0v, rho=rho, rho_vec=rho_vec, kkt=kkt, cost=big,
-        res=res_ops.ResInfo(big, big, zero, zero),
-        dx=torch.zeros(nx, dtype=dtype, device=device),
-        dy=torch.zeros(m, dtype=dtype, device=device),
-        gx=torch.zeros(n, dtype=dtype, device=device),
-        gy=torch.zeros(m, dtype=dtype, device=device),
-        w_sh=w0, mu_sh=torch.zeros(m, dtype=dtype, device=device),
-        chk_best=big, rho_log=rho_log,
-        hist=(torch.zeros((static.res_hist, 6), dtype=dtype, device=device)
-              if static.res_hist > 0 else None),
-        aa=(accel.init_accel(nx + m, static.accel_mem, dtype, device)
-            if accel_on else None),
-        redo=torch.zeros((), dtype=torch.bool, device=device),
-        due_age=izero, ref_stall=izero, ref_best=big, refine_on=refine_on0,
-    )
-    redo_reader = _FlagReader(device)
-    plain_reader = _FlagReader(device)      # this pass did not accelerate
+    if carry_in is not None:
+        # resume with the full solver state; only the status is reset so the
+        # loop re-enters
+        c = carry_in
+        c.status = results.UNDETERMINED
+    else:
+        x, mu, s0v = scaling_ops.scale_variables(x0, mu0, s0, sm)
+        rho = dyn.rho.clone()
+        rho_vec = _make_rho_vec(rho, rho_class, dyn, rho_row_scale)
+        rho_log = torch.zeros(RHO_LOG_LEN, dtype=dtype, device=device)
+        rho_log[0] = rho
+        kkt = kkt_setup(rho_vec)
+        # initial half-step so iterates agree with standard ADMM
+        # (solver.jl:125-138)
+        refine_on0 = not refine_gated
+        sol0 = torch.zeros(nx + m, dtype=dtype, device=device) if use_cg else None
+        w0, sol0, k0, reads0 = admm_x_w(
+            torch.cat([x_to_block(x), s0v + mu / rho_vec]), s0v, kkt, rho_vec,
+            refine_on0, sol0, 1, big)
+        zero = torch.zeros((), dtype=dtype, device=device)
+        izero = torch.zeros((), dtype=torch.int32, device=device)
+        c = LoopCarry(
+            w=w0, w_prev=w0, s=s0v, rho=rho, rho_vec=rho_vec, kkt=kkt, cost=big,
+            res=res_ops.ResInfo(big, big, zero, zero),
+            dx=torch.zeros(nx, dtype=dtype, device=device),
+            dy=torch.zeros(m, dtype=dtype, device=device),
+            gx=torch.zeros(n, dtype=dtype, device=device),
+            gy=torch.zeros(m, dtype=dtype, device=device),
+            w_sh=w0, mu_sh=torch.zeros(m, dtype=dtype, device=device),
+            chk_best=big, rho_log=rho_log,
+            hist=(torch.zeros((static.res_hist, 6), dtype=dtype, device=device)
+                  if static.res_hist > 0 else None),
+            aa=(accel.init_accel(nx + m, static.accel_mem, dtype, device)
+                if accel_on else None),
+            redo=torch.zeros((), dtype=torch.bool, device=device),
+            due_age=izero, ref_stall=izero, ref_best=big, refine_on=refine_on0,
+            sol=sol0, kkt_iters=k0 if use_cg else izero, kkt_reads=reads0,
+            redo_reader=_FlagReader(device), plain_reader=_FlagReader(device),
+        )
+    redo_reader, plain_reader = c.redo_reader, c.plain_reader
 
-    def waits(c: _Loop) -> int:
-        return c.syncs + redo_reader.waits + plain_reader.waits
+    def waits(c: LoopCarry) -> int:
+        return c.syncs + c.kkt_reads + redo_reader.waits + plain_reader.waits
 
     # ------------------------------------------------------------------
     # periodic work
     # ------------------------------------------------------------------
-    def residuals_rt(c: _Loop, x_k, mu_k, scaled: bool):
+    def residuals_rt(c: LoopCarry, x_k, mu_k, scaled: bool):
         """(rp, rd, mp, md), compensated once the refine latch is on."""
         comp = compensated_res and c.refine_on
         if comp and use_bspace_res:
@@ -413,7 +502,7 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
         mp, md = res_ops.max_res_component_norm(P, A, q, b, x_k, c.s, mu_k, sm, **kw)
         return rp, rd, mp, md
 
-    def adapt_rho(c: _Loop):
+    def adapt_rho(c: LoopCarry):
         """reference: solver.jl:242-282, parameters.jl:53-92"""
         mu_k = recover_mu(c.w_prev, c.s, c.rho_vec)
         x_k = x_from_block(c.w_prev[:nx])
@@ -439,7 +528,7 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
         if accel_on:
             c.aa = accel.restart(c.aa)
 
-    def check_termination(c: _Loop):
+    def check_termination(c: LoopCarry):
         """reference: solver.jl:303-321, with the refine latch and the
         accelerator's activation and stall toggle (cosmo_tpu.solver)"""
         mu_k = recover_mu(c.w_prev, c.s, c.rho_vec)
@@ -511,7 +600,7 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
         if fired:
             c.rho_force, c.n_forced = True, c.n_forced + 1
 
-    def _accel_checks(c: _Loop, info):
+    def _accel_checks(c: LoopCarry, info):
         """The accelerator's accuracy activation and stall toggle at a
         termination check, on the device (cosmo_tpu.solver
         check_termination). Returns whether a forced rho update fires."""
@@ -558,18 +647,25 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
         c.aa = aa
         return fire
 
-    def shadow_step(c: _Loop):
+    def shadow_step(c: LoopCarry):
         """One plain ADMM step of the certificate shadow trajectory; the
         first step after arming captures the delta base."""
         s_sh = project(c, c.w_sh[nx:])
         mu_sh = c.rho_vec * (c.w_sh[nx:] - s_sh)
         if c.dy_age == 0:
             c.dy, c.dx = mu_sh, c.w_sh[:nx]
-        c.w_sh = admm_x_w(c.w_sh, s_sh, c.kkt, c.rho_vec, c.refine_on)
+        it_d = None
+        if use_cg:
+            # the CG schedule's iteration: this pass's, the previous one on
+            # a redo pass
+            it_d = (c.it + 1) - c.redo.to(torch.int32) if guarded else c.it + 1
+        c.w_sh, _, k, reads = admm_x_w(c.w_sh, s_sh, c.kkt, c.rho_vec, c.refine_on,
+                                       c.sol, it_d, cg_res_min(c))
+        count_cg(c, k, reads)
         c.mu_sh = mu_sh
         c.dy_age += 1
 
-    def check_infeasibility(c: _Loop):
+    def check_infeasibility(c: LoopCarry):
         """Strict and 100x-loose certificates on the shadow deltas; the loose
         ones, with the main trajectory's check-to-check deltas, gate the
         window escalation (cosmo_tpu.solver.check_infeasibility)."""
@@ -606,7 +702,7 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
         c.dy, c.dx, c.gx, c.gy = dy, dx, x_now, mu_now
         c.infeas_due, c.dy_age = False, -1
 
-    def safeguard(c: _Loop):
+    def safeguard(c: LoopCarry):
         """acceleration_post (accelerator_interface.jl:85-114) as value
         selections: a declined candidate rolls w back to the last genuine
         ADMM output and sets ``redo``, so the next pass replays the step as
@@ -625,7 +721,7 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
         c.redo = bad
         redo_reader.post(bad)
 
-    def accelerate_pre(c: _Loop):
+    def accelerate_pre(c: LoopCarry):
         """acceleration_pre (accelerator_interface.jl:58-75) on the device:
         the activation, then the history update and the candidate, gated
         off on a redo pass and, for the candidate, once a deferred rho
@@ -698,7 +794,7 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
                 # the shadow's operator changed: its window restarts
                 c.rho_due, c.rho_force, c.dy_age = False, False, -1
 
-        c.w = admm_x_w(c.w, c.s, c.kkt, c.rho_vec, c.refine_on)
+        main_step(c, it)
         if guarded:
             safeguard(c)
 
@@ -720,27 +816,31 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
     # ------------------------------------------------------------------
     # post-processing (solver.jl:167-201)
     # ------------------------------------------------------------------
+    # the carry keeps its own status and residuals, so a resumed solve
+    # continues the uninterrupted trajectory
     mu_final = recover_mu(c.w_prev, c.s, c.rho_vec)
     x_final = x_from_block(c.w_prev[:nx])
-    if c.status == results.UNDETERMINED:
-        c.res = res_ops.ResInfo(*residuals_rt(c, x_final, mu_final, scaled=True))
-        c.status = results.MAX_ITER_REACHED
+    status, res = c.status, c.res
+    if status == results.UNDETERMINED:
+        res = res_ops.ResInfo(*residuals_rt(c, x_final, mu_final, scaled=True))
+        status = results.MAX_ITER_REACHED
     # a diverged or non-factorizable solve surfaces as Unsolved
     finite = bool(torch.isfinite(x_final).all() & torch.isfinite(c.s).all())
-    if not finite and c.status not in (results.PRIMAL_INFEASIBLE,
-                                       results.DUAL_INFEASIBLE):
-        c.status = results.UNSOLVED
+    if not finite and status not in (results.PRIMAL_INFEASIBLE,
+                                     results.DUAL_INFEASIBLE):
+        status = results.UNSOLVED
 
     x_out, mu_out, s_out = scaling_ops.unscale_variables(x_final, mu_final, c.s, sm)
     n_acc = c.aa.n_accelerated if accel_on else torch.zeros((), device=device)
-    scalars = torch.stack([c.cost, c.res.r_prim, c.res.r_dual, c.res.max_norm_prim,
-                           c.res.max_norm_dual, n_acc.to(dtype)]).tolist()
+    scalars = torch.stack([c.cost, res.r_prim, res.r_dual, res.max_norm_prim,
+                           res.max_norm_dual, n_acc.to(dtype),
+                           c.kkt_iters.to(dtype)]).tolist()
     out = dict(
         x=x_out.cpu().numpy(),
         y=(-mu_out).cpu().numpy(),
         s=s_out.cpu().numpy(),
         cost=scalars[0],
-        status=c.status,
+        status=status,
         iter=c.it,
         safeguarding_iter=c.sg_iter,
         r_prim=scalars[1],
@@ -748,15 +848,43 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
         max_norm_prim=scalars[3],
         max_norm_dual=scalars[4],
         n_rho_adapt=c.n_rho_adapt,
-        kkt_solver_iters=0,
+        kkt_solver_iters=int(scalars[6]),
         rho_log=c.rho_log.cpu().numpy(),
         n_accelerated=int(scalars[5]),
         projections=c.projections,
         refine_iter=c.refine_iter,
         refine_syncs=c.refine_syncs,
         syncs=waits(c),
+        kkt_reads=c.kkt_reads,
     )
     if static.res_hist > 0:
         out["res_hist"] = c.hist.cpu().numpy()
         out["res_hist_n"] = c.hist_n
+    if return_carry:
+        out["carry"], out["setup"] = c, setup
     return out
+
+
+def solve_chunked(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig,
+                  static: StaticConfig, chunk: int = 0, kkt_precond=None,
+                  kkt_block=None, rho_row_scale=None):
+    """:func:`solve` in chunks of at most ``chunk`` iterations: a host loop
+    that raises ``max_iter`` by ``chunk`` and resumes through the carry
+    until the solve ends or reaches ``dyn.max_iter``
+    (``cosmo_tpu.solver.solve_chunked``). It follows the trajectory of one
+    uninterrupted solve. ``chunk <= 0`` solves in one call."""
+    max_iter = int(dyn.max_iter)
+    kw = dict(kkt_precond=kkt_precond, kkt_block=kkt_block,
+              rho_row_scale=rho_row_scale)
+    if chunk <= 0 or max_iter <= chunk:
+        return solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, **kw)
+    carry = setup = None
+    limit = 0
+    while True:
+        limit = min(limit + chunk, max_iter)
+        out = solve(P, A, q, b, cones, x0, s0, mu0,
+                    dyn._replace(max_iter=torch.full_like(dyn.max_iter, limit)),
+                    static, carry_in=carry, return_carry=True, setup_in=setup, **kw)
+        carry, setup = out.pop("carry"), out.pop("setup")
+        if out["status"] != results.MAX_ITER_REACHED or limit >= max_iter:
+            return out

@@ -229,3 +229,74 @@ def test_large_side_layouts_on_card(cuda, side, colpad):
     if colpad:
         pad = torch.ones(side, side, dtype=torch.bool).tril(-1).T.reshape(-1)
         assert (s1.reshape(2, -1)[:, pad] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cg_graph_replays_the_eager_steps_on_card(cuda, dtype):
+    """kkt.CGGraph runs the masked CG blocks as CUDA graph replays: the same
+    steps as the eager blocks — in f64 the same step count and x within
+    1e-12 relative; in f32 the count within one step and x within 1e-4
+    (cuSPARSE's CSR product may round in another order from run to run,
+    and an f32 residual can sit at the target) — with and without the
+    overlap preconditioner and the compensated restart, and a reused graph
+    gives the same answer on another right-hand side."""
+    from cosmo_tpu_torch import chordal
+    from cosmo_tpu_torch.ops import kkt as kkt_ops
+    from cosmo_tpu_torch.ops import linops
+
+    P, q, A, b, sets, _ = problems.banded_sdp(60, 4, seed=0, sparse=True)
+    info = chordal.decompose(P, q, A, b, sets, pt.Settings(decompose=True))
+    Pd, _, Ad, _, _ = info.problem
+    Pc, Ac = (linops.coo_to_device(linops.coo_from_scipy(M), cuda, dtype) for M in (Pd, Ad))
+    m, n = Ad.shape
+    rng = np.random.default_rng(0)
+    T = lambda v: torch.as_tensor(v, dtype=dtype, device=cuda)  # noqa: E731
+    rho, x0 = T(rng.random(m) + 0.5), T(0.1 * rng.standard_normal(n))
+    f64 = dtype == torch.float64
+    tol = 1e-12 if f64 else 1e-4
+    for precond in (None, kkt_ops.make_overlap_precond(
+            info.n_orig, info.ov_child_rows, info.ov_parent_rows, cuda)):
+        graph = kkt_ops.CGGraph()
+        for refine, seed in ((0, 1), (1, 2), (0, 3)):
+            r1 = T(np.random.default_rng(seed).standard_normal(n))
+            r2 = T(np.random.default_rng(seed + 10).standard_normal(m))
+            args = (Pc, Ac, T(1e-6), rho, r1, r2, x0, T(1e-9), T(np.inf), 200, refine)
+            xe, _, ke, reads_e = kkt_ops.cg_solve(*args, precond=precond, block=3)
+            xg, _, kg, reads_g = kkt_ops.cg_solve(*args, precond=precond, block=3,
+                                                   graph=graph)
+            assert int(ke) > 0 and abs(int(kg) - int(ke)) <= (0 if f64 else 1)
+            assert reads_g == reads_e or not f64
+            assert (xg - xe).abs().max().item() <= tol * xe.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_coo_products_on_card_are_segment_sums(cuda):
+    """On the card a Coo's products, diagonal and column sums are the
+    CPU's sums within 1e-12 in f64, with a long row (the portfolio's factor
+    rows) and empty rows and columns; the copy that reaches
+    SEGMENT_REDUCE_WIDTH (the rows, by torch.segment_reduce, no atomics)
+    gives the same bits on a second run."""
+    import scipy.sparse as sp
+    from cosmo_tpu_torch.ops import linops
+
+    rng = np.random.default_rng(0)
+    width = linops.SEGMENT_REDUCE_WIDTH + 72
+    A = sp.random(300, width, density=0.05, random_state=1, format="lil")
+    A[7, :] = rng.standard_normal(width)               # a long row
+    A[9, :] = 0.0
+    A[:, 11] = 0.0
+    A = sp.csr_matrix(A)
+    P = sp.csr_matrix(sp.random(200, 200, density=0.05, random_state=2) + sp.eye(200))
+    x, y, rho = rng.standard_normal(width), rng.standard_normal(300), rng.random(300) + 0.5
+    host, card = [], []
+    for device, out in (("cpu", host), (cuda, card), (cuda, card)):
+        Ac, Pc = (linops.coo_to_device(linops.coo_from_scipy(M), device, torch.float64)
+                  for M in (A, P))
+        T = lambda v: torch.as_tensor(v, device=device)  # noqa: E731
+        out.append([linops.matvec(Ac, T(x)), linops.rmatvec(Ac, T(y)),
+                    linops.diag_part(Pc), linops.diag_AtRhoA(Ac, T(rho))])
+    assert Ac.max_row_nnz >= linops.SEGMENT_REDUCE_WIDTH
+    assert torch.equal(card[0][0], card[1][0])
+    for h, c in zip(host[0], card[0]):
+        assert (c.cpu() - h).abs().max().item() <= 1e-12 * max(1.0, h.abs().max().item())

@@ -134,12 +134,23 @@ def test_block_sdp_takes_the_block_kkt_and_matches_reference():
 
 def test_coupled_sparse_problem_raises_coo_cg():
     """Sparse input that neither decouples within kkt_block_max nor takes
-    the block-dense row layout needs the Coo + CG path, not ported yet."""
+    the block-dense row layout goes through Coo + CG — it raised until the
+    sixth slice ported that path, hence the name — in both packages, with
+    the same status (a dual-infeasible LP: min 1'x with a coupled
+    Nonnegatives constraint and no lower bound on x)."""
     A = sp.csr_matrix(np.random.default_rng(0).normal(size=(30, 20)))
-    model = pt.Model(pt.Settings(**DECOMPOSED, kkt_block_max=8), device="cpu").set(
-        sp.csr_matrix((20, 20)), np.ones(20), A, np.ones(30), [pt.Nonnegatives(30)])
-    with pytest.raises(NotImplementedError, match=r"Coo \+ CG"):
-        model.optimize()
+
+    def gen(mod):
+        return (sp.csr_matrix((20, 20)), np.ones(20), A, np.ones(30),
+                [mod.Nonnegatives(30)])
+
+    settings = dict(DECOMPOSED, kkt_block_max=8)
+    mj = ct.Model(ct.Settings(**settings)).set(*gen(ct))
+    mt = pt.Model(pt.Settings(**settings), device="cpu").set(*gen(pt))
+    rj, rt = mj.optimize(), mt.optimize()
+    assert mj._resolved_settings.kkt_solver == mt.last_solve["kkt_solver"] == "cg"
+    assert mt.last_solve["A_layout"] == "Coo"
+    assert rt.status == rj.status == "Dual_infeasible"
 
 
 def test_float32_decomposed_needs_the_df32_endgame():

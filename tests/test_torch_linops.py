@@ -150,3 +150,35 @@ def test_square_operator_helpers_match(kind):
     assert np.abs(np.asarray(jl.matvec(jl.symmetrize(jP), jnp.asarray(x)))
                   - tl.matvec(tl.symmetrize(tP), torch.as_tensor(x)).numpy()).max() <= TOL
     assert np.array_equal(tl.colmax_abs(tP).numpy(), np.abs(Pd).max(axis=0))
+
+
+def test_coo_segment_sums_match_index_add():
+    """A Coo's products, diagonal and weighted column sums
+    (ops/linops._coo_segment_sum) take torch.segment_reduce over the
+    segment pointers for a copy whose widest segment reaches
+    SEGMENT_REDUCE_WIDTH (here the rows, with one long row) and index_add_
+    over the sorted ids for the other (the columns): on the CPU both bit
+    for bit the sums of index_add_ (the reference's segment_sum), with
+    empty rows and columns, and A @ x within 1e-14 of scipy's."""
+    rng = np.random.default_rng(0)
+    width = tl.SEGMENT_REDUCE_WIDTH + 20
+    A = sp.lil_matrix(sp.random(60, width, density=0.1, random_state=3))
+    A[5, :] = rng.standard_normal(width)                   # a long row
+    A[7, :] = 0.0
+    A[:, 9] = 0.0
+    A = sp.csr_matrix(A)
+    P = sp.csr_matrix(sp.random(40, 40, density=0.1, random_state=4) + sp.eye(40))
+    c, cp = (tl.coo_to_device(tl.coo_from_scipy(M, np.float64), "cpu", torch.float64)
+             for M in (A, P))
+    assert c.max_row_nnz >= tl.SEGMENT_REDUCE_WIDTH > c.max_col_nnz
+    x = torch.as_tensor(rng.standard_normal(width))
+    y, rho = torch.as_tensor(rng.standard_normal(60)), torch.as_tensor(rng.random(60) + 0.5)
+    on_diag = torch.where(cp.rows == cp.cols, cp.vals, torch.zeros_like(cp.vals))
+    for got, ref in (
+            (tl.matvec(c, x), tl._segment_sum(c.vals * x[c.cols], c.rows, 60)),
+            (tl.rmatvec(c, y), tl._segment_sum(c.cvals * y[c.crows], c.ccols, width)),
+            (tl.diag_part(cp), tl._segment_sum(on_diag, cp.rows, 40)),
+            (tl.diag_AtRhoA(c, rho),
+             tl._segment_sum(rho[c.crows] * c.cvals * c.cvals, c.ccols, width))):
+        assert torch.equal(got, ref)
+    assert np.abs(tl.matvec(c, x).numpy() - A @ x.numpy()).max() <= 1e-14

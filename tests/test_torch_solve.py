@@ -185,20 +185,35 @@ def test_default_machinery_matches_reference(settings, build, tol):
 
 
 @pytest.mark.parametrize("make_settings,build", [
-    (_with(kkt_solver="cg"), _qp),
     (_with(kkt_solver=pt.CustomKKTSolver(setup=len, solve=len)), _qp),
-    # sparse, coupled beyond kkt_block_max and no Bde layout: Coo + CG
-    (_with(kkt_block_max=1), _lp),
     (_with(mixed_precision=True), _qp),
     (_with(eigh_backend="amortized"), _min_eig),
     (_with(eigh_backend="jacobi_mm"), _min_eig),
-    (_with(adaptive_rho_interval=0), _qp),
-], ids=["cg", "custom_kkt", "coo", "mixed_precision", "amortized", "jacobi_mm",
-        "auto_rho_interval"])
+], ids=["custom_kkt", "mixed_precision", "amortized", "jacobi_mm"])
 def test_unported_options_raise(make_settings, build):
     model = build(pt, pt.Model(make_settings(), device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         model.optimize()
+
+
+@pytest.mark.parametrize("settings,build,kkt", [
+    (dict(PLAIN, kkt_solver="cg"), _qp, "cg"),
+    # sparse, coupled beyond kkt_block_max and no Bde layout: Coo + CG
+    (dict(PLAIN, kkt_block_max=1), _lp, "cg"),
+    (dict(PLAIN, adaptive_rho_interval=0, check_termination=10), _qp, "dense"),
+], ids=["cg", "coo", "auto_rho_interval"])
+def test_formerly_unported_options_match_reference(settings, build, kkt):
+    """The cases of test_unported_options_raise that the sixth slice
+    ported: kkt_solver="cg" on a dense problem, sparse coupled input (Coo
+    and CG in both packages) and the auto rho-interval probe. Each solves
+    as the reference does, within 10x its eps = 1e-5."""
+    mj, rj, mt, rt = _solve_both(build, settings)
+    _assert_same(rj, rt)
+    assert mj._resolved_settings.kkt_solver == mt.last_solve["kkt_solver"] == kkt
+    if kkt == "cg":
+        assert rt.info.kkt_solver_iters > 0
+    if build is _lp:
+        assert mt.last_solve["A_layout"] == "Coo"
 
 
 def test_unported_cones_and_mesh_raise():

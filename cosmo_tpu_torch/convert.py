@@ -19,7 +19,6 @@ import torch
 from .chordal import transform, trees
 from .models import cones as C
 from .ops import blockkkt, conedata, linops
-from .ops.conedata import not_ported
 from .settings import Settings
 
 
@@ -30,19 +29,22 @@ def _pick(cls, d: dict) -> dict:
 
 def cones_from_dict(d: dict, device, dtype: torch.dtype) -> conedata.ConeData:
     """A ``cosmo_tpu.ops.conedata.ConeData`` as a dict -> this package's
-    ConeData on ``device`` (floats in ``dtype``)."""
-    for key in ("exp", "pow"):
-        part = d.get(key)
-        if part is not None and len(part["idx"]) > 0:
-            raise not_ported(f"{key} cones", "exp/pow/custom/complex cones")
-    if d.get("custom"):
-        raise not_ported("custom cones", "exp/pow/custom/complex cones")
+    ConeData on ``device`` (floats in ``dtype``). Its ``"custom"`` entries
+    are ``(offset, cone)`` pairs whose cone is this package's
+    :class:`~cosmo_tpu_torch.models.cones.CustomCone` or a dict of its
+    fields: the user functions must take and return torch tensors."""
     # the shear and colpad buckets also get the port's derived maps
     psd = [conedata.layout_maps(conedata.PsdBucket(**_pick(conedata.PsdBucket, b)))
            for b in d.get("psd_buckets", ())]
     soc = [conedata.SocBucket(idx=b["idx"]) for b in d.get("soc_buckets", ())]
     top = _pick(conedata.ConeData, d)
     top.update(soc_buckets=tuple(soc), psd_buckets=tuple(psd))
+    for key, cls in (("exp", conedata.ExpCones), ("pow", conedata.PowCones)):
+        if d.get(key) is not None:
+            top[key] = cls(**_pick(cls, d[key]))
+    top["custom"] = tuple(
+        (int(o), c if isinstance(c, C.CustomCone) else C.CustomCone(**_pick(C.CustomCone, c)))
+        for (o, c) in d.get("custom", ()))
     return conedata.to_device(conedata.ConeData(**top), device, dtype)
 
 

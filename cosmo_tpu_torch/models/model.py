@@ -41,6 +41,7 @@ from ..ops import linops
 from ..ops.conedata import not_ported
 from ..settings import (KKT_BLOCK, KKT_CG, KKT_DENSE, KKT_MINRES, Settings,
                         split_settings, torch_dtype)
+from ..utils import printing
 from . import cones as C
 from .constraint import Constraint
 
@@ -254,10 +255,6 @@ class Model:
     def _check_supported(self, settings: Settings, mesh):
         if mesh is not None:
             raise not_ported("optimize(mesh=...)", "mesh")
-        if not isinstance(settings.kkt_solver, str) or settings.kkt_solver not in (
-                KKT_DENSE, KKT_BLOCK, KKT_CG, KKT_MINRES):
-            raise not_ported(f"kkt_solver={settings.kkt_solver!r}",
-                             "custom KKT solvers")
 
     def _device_operators(self, P, A, sets, use_sparse, kkt_block, settings, dtype):
         """(P, A) on the device: dense tensors; a dense P and a block-dense
@@ -427,6 +424,9 @@ class Model:
         # the option set this solve ran with, after the auto resolutions
         self._resolved_settings = settings
         times.setup_time = time.perf_counter() - t_setup
+        if settings.verbose:
+            printing.print_header(self, m, n, sets=sets, chordal_info=chordal_info,
+                                  settings=settings)
 
         # the time limit runs from the start of optimize (reference t_solver)
         deadline = (t_solver + settings.time_limit
@@ -464,6 +464,7 @@ class Model:
             projections=out["projections"], iter_time=times.iter_time,
             kkt_refine_steps=static.kkt_refine_steps, accel_mem=static.accel_mem,
             n_accelerated=out["n_accelerated"], refine_iter=out["refine_iter"],
+            loose_iter=out["loose_iter"],
             syncs=out["syncs"], refine_syncs=out["refine_syncs"],
             kkt_solver_iters=out["kkt_solver_iters"], kkt_reads=out["kkt_reads"],
             auto_rho_interval=self.auto_rho_interval,
@@ -499,6 +500,8 @@ class Model:
             info=info,
             times=times,
         )
+        if settings.verbose:
+            printing.print_result(self, result)
         return result
 
     def _resolve_auto_rho_interval(self, args, kw, dyn, static, settings, times):
@@ -586,7 +589,16 @@ class Model:
                                                 tol, static.kkt_cg_max_iter, steps,
                                                 precond=kkt_precond, graph=graph)
             else:
-                if static.kkt_solver == KKT_BLOCK:
+                if not isinstance(static.kkt_solver, str):
+                    # a custom KKT plug-in: its own setup and solve
+                    plug = static.kkt_solver
+
+                    def factor():
+                        return plug.setup(Pd, Ad, sigma, rho_vec)
+
+                    def solve():
+                        return plug.solve(st, Pd, Ad, sigma, rho_vec, r1, bd)
+                elif static.kkt_solver == KKT_BLOCK:
                     def factor():
                         return blockkkt.factor(kkt_block, Pd, Ad, sigma, rho_vec,
                                                build_pair=steps > 0)

@@ -7,9 +7,14 @@ src/convexset.jl:885-891):
   elementwise clip with per-row lower/upper bound vectors;
 * second-order cones are bucketed by padded dimension into ``[B, d]``
   stacks (zero-padding is exact for the SOC projection);
-* real PSD cones (square, svec-triangle and column-padded svec storage)
-  are bucketed by padded side into ``[B, k, k]`` stacks, projected one
-  batched call per bucket.
+* PSD cones (square, svec-triangle and column-padded svec storage, and
+  complex Hermitian blocks through their real 2r x 2r embedding) are
+  bucketed by padded side into ``[B, k, k]`` stacks, projected one batched
+  call per bucket;
+* exponential and power cones become ``[N, 3]`` stacks
+  (:class:`ExpCones`, :class:`PowCones`) projected by one kernel launch a
+  family; dual cones ride the same stacks by a per-row flag;
+* custom cones keep their offset and their user object.
 
 Gather/scatter between the slack vector and the stacks use precomputed
 index maps; padding lanes point at a one-past-the-end "dump" slot. A bucket
@@ -18,8 +23,7 @@ of uniform blocks in contiguous rows takes a layout fast path instead
 (large side) or one reshape (column-padded storage).
 
 :func:`compile_cones` builds numpy arrays on the host; :func:`to_device`
-moves the result to a torch device. Exponential, power, custom and complex
-PSD cones are not ported yet and raise ``NotImplementedError``.
+moves the result to a torch device.
 """
 from __future__ import annotations
 
@@ -131,6 +135,27 @@ class PsdBucket:
 
 
 @dataclasses.dataclass(frozen=True)
+class ExpCones:
+    """The exponential cones, primal and dual, as [N, 3] row indices."""
+
+    idx: Any       # int [N, 3]
+    is_dual: Any   # bool [N]
+    tol: Any = None       # [N] per-cone projection tolerance
+    max_iter: int = 100   # the largest of the cones' bisection limits
+
+
+@dataclasses.dataclass(frozen=True)
+class PowCones:
+    """The power cones, primal and dual, as [N, 3] row indices."""
+
+    idx: Any       # int [N, 3]
+    alpha: Any     # [N]
+    is_dual: Any   # bool [N]
+    tol: Any = None       # [N] per-cone projection tolerance
+    max_iter: int = 20    # the largest of the cones' Newton limits
+
+
+@dataclasses.dataclass(frozen=True)
 class ConeData:
     """Batched representation of a Cartesian product of cones."""
 
@@ -150,6 +175,11 @@ class ConeData:
     rect_seg: Any = None      # int [m] in [0, n_rect_segments]; dump == last
     soc_buckets: Tuple[SocBucket, ...] = ()
     psd_buckets: Tuple[PsdBucket, ...] = ()
+    exp: ExpCones = None
+    pow: PowCones = None
+    # user-defined cones: ((offset, CustomCone), ...); their functions take
+    # and return tensors on the solve's device
+    custom: Tuple = ()
 
 
 def _fields_to_device(obj, device, dtype):
@@ -169,6 +199,8 @@ def to_device(cones: ConeData, device, dtype: torch.dtype) -> ConeData:
                           for b in cones.soc_buckets),
         psd_buckets=tuple(_fields_to_device(b, device, dtype)
                           for b in cones.psd_buckets),
+        exp=None if cones.exp is None else _fields_to_device(cones.exp, device, dtype),
+        pow=None if cones.pow is None else _fields_to_device(cones.pow, device, dtype),
     )
 
 
@@ -202,20 +234,16 @@ def resolve_eigh_backend(requested: str, buckets=None, accel_on: bool = True,
     return "polar"
 
 
+# the cones whose rows share one Ruiz scaling factor (convexset.jl:953-958)
+_RECTIFIED = (C.SecondOrderCone, C.PsdCone, C.PsdConeTriangle, C.PsdConeTriangleColPad,
+              C.PsdConeTriangleComplex, C.ExponentialCone, C.DualExponentialCone,
+              C.PowerCone, C.DualPowerCone)
+
+
 def _tri_index(i: int, j: int) -> int:
     """svec index of entry (i, j), i <= j, column-major upper triangle
     (reference packing order: src/convexset.jl:432-442)."""
     return j * (j + 1) // 2 + i
-
-
-_NOT_PORTED_CONES = (
-    (C.PsdConeTriangleComplex, "complex PSD cones"),
-    (C.ExponentialCone, "exponential cones"),
-    (C.DualExponentialCone, "exponential cones"),
-    (C.PowerCone, "power cones"),
-    (C.DualPowerCone, "power cones"),
-    (C.CustomCone, "custom cones"),
-)
 
 
 def compile_cones(sets: List[C.ConvexSet], dtype=np.float64, psd_pad_to: int = 8,
@@ -225,9 +253,6 @@ def compile_cones(sets: List[C.ConvexSet], dtype=np.float64, psd_pad_to: int = 8
     """Build the batched cone representation (numpy arrays) from an ordered
     cone list. ``device`` is where the solve will run (None: ``cuda``): the
     ``"auto"`` backend resolves for it (:func:`resolve_eigh_backend`)."""
-    for cls, what in _NOT_PORTED_CONES:
-        if any(isinstance(s, cls) for s in sets):
-            raise not_ported(what, "exp/pow/custom/complex cones")
     if eigh_backend in ("amortized", "jacobi_mm"):
         raise not_ported(f"eigh_backend={eigh_backend!r}",
                          "amortized/jacobi_mm backends")
@@ -245,8 +270,11 @@ def compile_cones(sets: List[C.ConvexSet], dtype=np.float64, psd_pad_to: int = 8
 
     soc_groups: dict[int, list[tuple[int, int]]] = {}   # d_pad -> [(offset, d)]
     # (k, kind) -> [(offset, r)]; kind: False triangle, True square storage,
-    # "colpad" column-padded triangle storage
+    # "colpad" column-padded triangle storage, "complex" Hermitian storage
     psd_groups: dict[tuple[int, Any], list[tuple[int, int]]] = {}
+    exp_rows: list[tuple[int, bool, float, int]] = []          # (o, dual, tol, it)
+    pow_rows: list[tuple[int, float, bool, float, int]] = []   # (o, alpha, ...)
+    custom: list = []
 
     n_rect = 0
     offset = 0
@@ -264,20 +292,38 @@ def compile_cones(sets: List[C.ConvexSet], dtype=np.float64, psd_pad_to: int = 8
             lb[rows] = cone.l
             ub[rows] = cone.u
             box_mask[rows] = True
-        elif isinstance(cone, (C.SecondOrderCone, C.PsdCone, C.PsdConeTriangle,
-                               C.PsdConeTriangleColPad)):
+        elif isinstance(cone, C.CustomCone):
+            custom.append((offset, cone))
+            if cone.scalar_scaling:
+                rect_mask[rows] = True
+                rect_seg[rows] = n_rect
+                n_rect += 1
+        elif isinstance(cone, _RECTIFIED):
             if isinstance(cone, C.SecondOrderCone):
                 pad = pad_side(d, 1 if not soc_pad_pow2 else 2)
                 soc_groups.setdefault(pad, []).append((offset, d))
+            elif isinstance(cone, (C.ExponentialCone, C.DualExponentialCone)):
+                exp_rows.append((offset, isinstance(cone, C.DualExponentialCone),
+                                 cone.tol, cone.max_iter))
+            elif isinstance(cone, (C.PowerCone, C.DualPowerCone)):
+                pow_rows.append((offset, cone.alpha, isinstance(cone, C.DualPowerCone),
+                                 cone.tol, cone.max_iter))
             elif isinstance(cone, C.PsdConeTriangleColPad):
                 # the chordal transform emits it pre-padded: the side IS
                 # the storage stride, so no ladder padding applies
                 psd_groups.setdefault((cone.side, "colpad"), []).append(
                     (offset, cone.side))
             elif cone.side <= 1:
-                # 1x1 PSD block == nonnegativity (convexset.jl:303-308)
+                # a 1x1 PSD (or Hermitian) block is nonnegativity
+                # (convexset.jl:303-308)
                 lb[rows] = 0.0
                 nonneg_mask[rows] = True
+            elif isinstance(cone, C.PsdConeTriangleComplex):
+                # the real 2r x 2r embedding [[A, -B], [B, A]] of H = A + iB
+                # is symmetric with H's eigenvalues doubled, so the real
+                # projection applies unchanged (convexset.jl:344-360)
+                k = pad_side(2 * cone.side, psd_pad_to)
+                psd_groups.setdefault((k, "complex"), []).append((offset, cone.side))
             else:
                 square = isinstance(cone, C.PsdCone)
                 k = pad_side(cone.side, psd_pad_to)
@@ -355,7 +401,36 @@ def compile_cones(sets: List[C.ConvexSet], dtype=np.float64, psd_pad_to: int = 8
         rect_mask=rect_mask, rect_seg=rect_seg,
         soc_buckets=tuple(soc_buckets),
         psd_buckets=tuple(psd_buckets),
+        exp=_exp_cones(exp_rows, dtype),
+        pow=_pow_cones(pow_rows, dtype),
+        custom=tuple(custom),
     )
+
+
+def _rows3(offsets) -> np.ndarray:
+    return (np.asarray(offsets, np.int32).reshape(-1, 1)
+            + np.arange(3, dtype=np.int32)[None, :])
+
+
+def _exp_cones(rows, dtype) -> ExpCones:
+    """The [N, 3] stack of the exponential cones, bisection limit the
+    largest of theirs (cosmo_tpu.ops.conedata:613-628)."""
+    return ExpCones(
+        idx=_rows3([o for (o, *_r) in rows]),
+        is_dual=np.array([d for (_, d, _t, _i) in rows], dtype=bool),
+        tol=np.array([t for (_, _d, t, _i) in rows], dtype=dtype),
+        max_iter=max((i for (*_r, i) in rows), default=100))
+
+
+def _pow_cones(rows, dtype) -> PowCones:
+    """The [N, 3] stack of the power cones, Newton limit the largest of
+    theirs (cosmo_tpu.ops.conedata:630-645)."""
+    return PowCones(
+        idx=_rows3([o for (o, *_r) in rows]),
+        alpha=np.array([a for (_, a, *_r) in rows], dtype=dtype),
+        is_dual=np.array([d for (_, _a, d, _t, _i) in rows], dtype=bool),
+        tol=np.array([t for (*_r, t, _i) in rows], dtype=dtype),
+        max_iter=max((i for (*_r, i) in rows), default=20))
 
 
 def layout_maps(bucket: PsdBucket) -> PsdBucket:
@@ -401,6 +476,8 @@ def _psd_bucket(k: int, blocks, DUMP: int, dtype) -> PsdBucket:
             s_scl[b, :r, :r] = 1.0
         elif kind is False:
             tri_batch.setdefault(r, []).append((b, o))
+        elif kind == "complex":
+            _fill_complex(g_idx[b], g_scl[b], s_idx[b], s_scl[b], o, r)
     for r, bo in tri_batch.items():
         jj, ii = np.tril_indices(r)            # (i, j) with i <= j
         t = jj * (jj + 1) // 2 + ii            # _tri_index vectorized
@@ -488,3 +565,28 @@ def _psd_bucket(k: int, blocks, DUMP: int, dtype) -> PsdBucket:
         expand=expand, compress=compress, sh_starts=sh_starts,
         sh_scale=sh_scale, sh_flat=sh_flat, sh_csc=sh_csc, cp_csc=cp_csc,
     ))
+
+
+def _fill_complex(g_idx, g_scl, s_idx, s_scl, o: int, r: int):
+    """The [k, k] maps of one Hermitian block at offset ``o`` (side r), in
+    place (cosmo_tpu.ops.conedata:496-522). H = A + iB is stored as
+    [svec(A); sqrt(2) * strict-upper(B)] (convexset.jl:446-490); the
+    gather builds M = [[A, -B], [B, A]], the scatter reads the real parts
+    from M's top-left block and the imaginary parts from its bottom-left."""
+    isq = 1.0 / SQRT2
+    jj, ii = np.tril_indices(r)                # (i, j) with i <= j
+    t = o + jj * (jj + 1) // 2 + ii
+    scl = np.where(ii == jj, 1.0, isq)
+    for (a, b) in ((ii, jj), (jj, ii), (r + ii, r + jj), (r + jj, r + ii)):
+        g_idx[a, b] = t
+        g_scl[a, b] = scl
+    s_idx[ii, jj] = t
+    s_scl[ii, jj] = np.where(ii == jj, 1.0, SQRT2)
+    jj, ii = np.tril_indices(r, -1)            # (i, j) with i < j
+    t = o + r * (r + 1) // 2 + jj * (jj - 1) // 2 + ii
+    for (a, b, sgn) in ((r + ii, jj, 1.0), (r + jj, ii, -1.0),
+                        (ii, r + jj, -1.0), (jj, r + ii, 1.0)):
+        g_idx[a, b] = t
+        g_scl[a, b] = sgn * isq
+    s_idx[r + ii, jj] = t
+    s_scl[r + ii, jj] = SQRT2

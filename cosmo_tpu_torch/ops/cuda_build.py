@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels of this package.
 
-The Jacobi kernels are ``csrc/*.cu`` files with a plain C interface, linked
-into one library. It is compiled for sm_90a with ``nvcc`` at first use into
-``cosmo_tpu_torch/_build/`` (gitignored), one ``nvcc`` per source, all
-started together, then linked, and loaded with ctypes; nothing is built
-when a module is imported. The library's name carries a hash of its
+The kernels are ``csrc/*.cu`` files with a plain C interface, in two
+libraries: the Jacobi kernels' (:func:`jacobi_library`) and the exp/pow
+cone projection's (:func:`exp_pow_library`). Each is compiled for sm_90a
+with ``nvcc`` at first use into ``cosmo_tpu_torch/_build/`` (gitignored),
+one ``nvcc`` per source, all started together, then linked, and loaded
+with ctypes; nothing is built when a module is imported (:func:`build_all`
+builds both libraries at once). A library's name carries a hash of its
 sources, the headers they include from ``csrc/`` and the flags, so an
 edited source or header never loads a stale build.
 """
@@ -31,6 +33,8 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 # schedules' C entries, and the shared-memory body both use
 JACOBI_SOURCES = ("jacobi_proj.cu", "jacobi_proj_rr.cu", "jacobi_smem.cu")
 JACOBI_ENTRIES = ("jacobi_proj", "jacobi_proj_rr")
+# the exp/pow cone projection's library: one source, one entry a family
+EXP_POW_SOURCES = ("exp_pow_proj.cu",)
 
 # the side limits both Jacobi kernels take (pallas_eigh.py:257-266)
 KERNEL_MIN_SIDE = 4
@@ -162,3 +166,34 @@ def launch_jacobi(lib: ctypes.CDLL, prefix: str, X: torch.Tensor,
         raise RuntimeError(f"{prefix} kernel launch failed: CUDA error {err} "
                            f"(B={B}, k={k}, {X.dtype})")
     return out
+
+
+def build_exp_pow() -> Path:
+    """Compile the exp/pow cone projection's library unless it is built."""
+    return build([CSRC / name for name in EXP_POW_SOURCES], "exp_pow")
+
+
+@lru_cache(maxsize=None)
+def exp_pow_library() -> ctypes.CDLL:
+    """Build and load the exp/pow cone projection's library. Its C entries
+    ``exp_proj_<f32|f64>(const T* v, const uint8_t* is_dual, const T* tol,
+    T* out, int n, int max_iter, void* stream)`` and ``pow_proj_<f32|f64>``
+    (the same with ``const T* alpha`` after ``v``) return
+    ``cudaGetLastError()``."""
+    lib = ctypes.CDLL(str(build_exp_pow()))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for t in ("f32", "f64"):
+        getattr(lib, f"exp_proj_{t}").argtypes = [p, p, p, p, i, i, p]
+        getattr(lib, f"pow_proj_{t}").argtypes = [p, p, p, p, p, i, i, p]
+        getattr(lib, f"exp_proj_{t}").restype = i
+        getattr(lib, f"pow_proj_{t}").restype = i
+    return lib
+
+
+def build_all() -> list[Path]:
+    """Compile both libraries unless they are built, every source's
+    ``nvcc`` started together (one thread a library)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:
+        return list(pool.map(lambda fn: fn(), (build_jacobi, build_exp_pow)))

@@ -10,6 +10,7 @@ blocks in plain PyTorch (the port of ``cosmo_tpu.ops.eigh``).
 """
 from __future__ import annotations
 
+import contextlib
 from functools import lru_cache
 
 import numpy as np
@@ -117,11 +118,60 @@ def psd_project_eigh(X):
     return psd_reconstruct(*torch.linalg.eigh(X))
 
 
-def psd_project_polar(X, quintic_iters: int = 9, cubic_iters: int = 6):
+@contextlib.contextmanager
+def tf32_matmuls():
+    """float32 products in TF32 inside the block (a no-op on the CPU)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# the float32 bits below a TF32 mantissa (10 of float32's 23 stay)
+_TF32_LOW_BITS = (1 << 13) - 1
+
+
+def _tf32_split(M):
+    """M = hi + lo with hi representable in TF32 (M's low 13 mantissa bits
+    cleared) and lo = M - hi exact in float32."""
+    hi = (M.view(torch.int32) & ~_TF32_LOW_BITS).view(torch.float32)
+    return hi, M - hi
+
+
+def matmul_3xtf32(A, B):
+    """A @ B in float32 from three TF32 products, hi(A) hi(B) + (hi(A)
+    lo(B) + lo(A) hi(B)): about 21 bits of each operand, the counterpart on
+    an H100 of the TPU's three bf16 passes (the JAX package's
+    ``precision="high"``). Call it inside :func:`tf32_matmuls`."""
+    Ah, Al = _tf32_split(A)
+    Bh, Bl = _tf32_split(B)
+    return Ah @ Bh + (Ah @ Bl + Al @ Bh)
+
+
+def psd_project_polar(X, quintic_iters: int = 9, cubic_iters: int = 6,
+                      tf32: bool = False):
     """PSD projection via the matrix sign function: Pi(X) = (X + |X|)/2 with
     |X| = X sign(X), the sign computed by Newton-Schulz on X/||X||_F: an
     aggressive quintic phase (3 matmuls a step), then the cubic polish
-    (schedule of ``cosmo_tpu.ops.eigh.psd_project_polar``)."""
+    (schedule of ``cosmo_tpu.ops.eigh.psd_project_polar``).
+
+    ``tf32``: the mixed-precision loose phase (the JAX package's
+    ``precision="high"``, three bf16 passes on a TPU): each float32 product
+    is :func:`matmul_3xtf32`, three TF32 passes. One TF32 pass (JAX's
+    "high" on a GPU) keeps 10 mantissa bits, and on an H100 it floors the
+    relative residuals of ``block_sdp(8, 256, 256)`` at ~3e-3, above the
+    loose phase's switch (1e-3), so the phase never ends (PERF.md §6),
+    as one bf16 pass does on the TPU (``cosmo_tpu.ops.projections:103-113``).
+    Other types ignore the flag."""
+    if not (tf32 and X.dtype == torch.float32):
+        return _polar(X, quintic_iters, cubic_iters, torch.matmul)
+    with tf32_matmuls():
+        return _polar(X, quintic_iters, cubic_iters, matmul_3xtf32)
+
+
+def _polar(X, quintic_iters, cubic_iters, mm):
     a, bq, cq = 3.4445, -4.7750, 2.0315
     nrm = torch.sqrt(torch.sum(X * X, dim=(-2, -1), keepdim=True))
     Z = X / torch.clamp(nrm, min=torch.finfo(X.dtype).tiny)
@@ -131,8 +181,8 @@ def psd_project_polar(X, quintic_iters: int = 9, cubic_iters: int = 6):
         return 0.5 * (M + M.transpose(-1, -2))
 
     for _ in range(quintic_iters):
-        Y = Z @ Z
-        Z = sym(Z @ (a * eye + bq * Y + cq * (Y @ Y)))
+        Y = mm(Z, Z)
+        Z = sym(mm(Z, a * eye + bq * Y + cq * mm(Y, Y)))
     for _ in range(cubic_iters):
-        Z = sym(1.5 * Z - 0.5 * ((Z @ Z) @ Z))
-    return sym(0.5 * (X + X @ Z))
+        Z = sym(1.5 * Z - 0.5 * mm(mm(Z, Z), Z))
+    return sym(0.5 * (X + mm(X, Z)))

@@ -5,13 +5,18 @@ The composite projection is a fixed sequence of batched ops:
 
 1. one elementwise clip covering Zero/Nonnegatives/Box rows,
 2. one vectorized SOC projection per SOC bucket,
-3. one batched PSD projection per PSD bucket (gather -> project -> scatter).
+3. one batched PSD projection per PSD bucket (gather -> project -> scatter);
+4. one kernel launch for all exponential cones and one for all power cones
+   (:mod:`.exp_pow_proj`; the plain version on the CPU);
+5. each custom cone's own projection on its slice.
 """
 from __future__ import annotations
 
 import torch
 
 from . import eigh as eigh_mod
+from . import exp_pow
+from . import exp_pow_proj
 from . import jacobi_proj
 from .conedata import ConeData, PsdBucket, resolve_eigh_backend
 
@@ -76,16 +81,21 @@ def _psd_gather(v_ext, bucket: PsdBucket):
     return X
 
 
-def _psd_project_bucket(X, cones: ConeData, bucket: PsdBucket | None = None):
+def _psd_project_bucket(X, cones: ConeData, bucket: PsdBucket | None = None,
+                        loose: bool = False):
     """Batched PSD projection [B, k, k] -> [B, k, k] with the bucket's
-    backend (the per-bucket override wins over the ConeData-wide one)."""
+    backend (the per-bucket override wins over the ConeData-wide one).
+    ``loose``: the mixed-precision phase (``cosmo_tpu.ops.projections:
+    103-133``): the polar's float32 products run as three TF32 passes
+    (``eigh.matmul_3xtf32``), the counterpart of the JAX package's
+    ``precision="high"``; every other backend ignores it."""
     backend = resolve_eigh_backend(cones.eigh_backend, device=X.device)
     if bucket is not None and bucket.backend:
         backend = bucket.backend
     if backend == "pallas":
         return jacobi_proj.psd_project_pallas(X, cones.jacobi_sweeps)
     if backend == "polar":
-        return eigh_mod.psd_project_polar(X)
+        return eigh_mod.psd_project_polar(X, tf32=loose)
     if backend == "jacobi":
         return eigh_mod.psd_project_jacobi(X, cones.jacobi_sweeps)
     if backend == "xla":
@@ -93,9 +103,10 @@ def _psd_project_bucket(X, cones: ConeData, bucket: PsdBucket | None = None):
     raise ValueError(f"unknown eigh_backend {backend!r}")
 
 
-def project(w2, cones: ConeData):
+def project(w2, cones: ConeData, loose: bool = False):
     """s = Pi_K(w2): project the slack part of the operator variable onto K
-    (replaces admm_z!'s fan-out, reference: src/solver.jl:7-21)."""
+    (replaces admm_z!'s fan-out, reference: src/solver.jl:7-21).
+    ``loose``: the mixed-precision phase flag (:func:`_psd_project_bucket`)."""
     s = torch.clamp(w2, cones.lb, cones.ub)
     v_ext = _ext(w2)
 
@@ -106,9 +117,25 @@ def project(w2, cones: ConeData):
         s = s_ext[:-1]
 
     for bucket in cones.psd_buckets:
-        Y = _psd_project_bucket(_psd_gather(v_ext, bucket), cones, bucket)
+        Y = _psd_project_bucket(_psd_gather(v_ext, bucket), cones, bucket, loose)
         s = _psd_scatter(s, Y, bucket)
+
+    ec, pc = cones.exp, cones.pow
+    if ec is not None and ec.idx.shape[0] > 0:
+        _set_rows(s, ec.idx, exp_pow_proj.project_exp(
+            v_ext[ec.idx], ec.is_dual, ec.tol, ec.max_iter))
+    if pc is not None and pc.idx.shape[0] > 0:
+        _set_rows(s, pc.idx, exp_pow_proj.project_pow(
+            v_ext[pc.idx], pc.alpha, pc.is_dual, pc.tol, pc.max_iter))
+
+    for offset, cone in cones.custom:
+        s[offset:offset + cone.dim] = cone.project(w2[offset:offset + cone.dim])
     return s
+
+
+def _set_rows(s, idx, P):
+    """s[idx] = P in place; ``idx`` holds no dump slot."""
+    s[idx.reshape(-1)] = P.reshape(-1)
 
 
 def _psd_scatter(s, Y, bucket: PsdBucket):
@@ -180,8 +207,42 @@ def in_pol_recc_multi(v, cones: ConeData, tols):
         for X in psd_X:
             # lambda_max(X) <= tol  <=>  tol I - X is PSD
             ok = ok & _psd_all_pd(-X, tol)
+        # in_pol_recc(v) = in_dual(-v); a dual cone's dual is the cone
+        ok = ok & _exp_pow_in_dual(-v_ext, cones, tol)
+        for offset, cone in cones.custom:
+            v_c = v[offset:offset + cone.dim]
+            if cone.in_pol_recc is not None:
+                ok = ok & _as_flag(cone.in_pol_recc(v_c, tol), v)
+            elif cone.in_dual is not None:
+                # the polar recession cone of a cone K is -K*
+                ok = ok & _as_flag(cone.in_dual(-v_c, tol), v)
+            else:
+                # unknown membership: never certify through this cone
+                ok = ok & _as_flag(False, v)
         oks.append(ok)
     return tuple(oks)
+
+
+def _as_flag(flag, like):
+    """A custom cone's answer as a 0-d bool tensor on ``like``'s device."""
+    return torch.as_tensor(flag, device=like.device).to(torch.bool).reshape(())
+
+
+def _exp_pow_in_dual(v_ext, cones: ConeData, tol):
+    """All exp and pow rows of ``v_ext`` in the dual of their cone (the
+    cone itself for a dual cone), at ``tol`` (cosmo_tpu.ops.projections:
+    303-314, :369-379)."""
+    ok = torch.ones((), dtype=torch.bool, device=v_ext.device)
+    ec, pc = cones.exp, cones.pow
+    if ec is not None and ec.idx.shape[0] > 0:
+        V = v_ext[ec.idx]
+        ok = ok & torch.where(ec.is_dual, exp_pow.exp_in_cone(V, tol),
+                              exp_pow.exp_in_dual(V, tol)).all()
+    if pc is not None and pc.idx.shape[0] > 0:
+        V = v_ext[pc.idx]
+        ok = ok & torch.where(pc.is_dual, exp_pow.pow_in_cone(V, pc.alpha, tol),
+                              exp_pow.pow_in_dual(V, pc.alpha, tol)).all()
+    return ok
 
 
 def support_function_multi(y, cones: ConeData, tols):
@@ -209,5 +270,16 @@ def support_function_multi(y, cones: ConeData, tols):
         for X in psd_Xn:
             # lambda_min(X) >= -tol  <=>  X + tol I is PSD
             ok = ok & _psd_all_pd(X, tol)
-        outs.append(torch.where(ok, box_sum, inf))
+        ok = ok & _exp_pow_in_dual(-v_ext, cones, tol)
+        custom_sum = torch.zeros((), dtype=y.dtype, device=y.device)
+        for offset, cone in cones.custom:
+            y_c = y[offset:offset + cone.dim]
+            if cone.support is not None:
+                custom_sum = custom_sum + cone.support(y_c, tol)
+            elif cone.in_dual is not None:
+                # a cone's support is 0 iff -y lies in its dual, else +inf
+                ok = ok & _as_flag(cone.in_dual(-y_c, tol), y)
+            else:
+                ok = ok & _as_flag(False, y)
+        outs.append(torch.where(ok, box_sum + custom_sum, inf))
     return tuple(outs)

@@ -325,3 +325,111 @@ def portfolio_optimum(k: int, gamma: float = 1.0, seed: int = 0, n: int | None =
         x = x + a_p * dx
         nu, z, w = nu + a_d * dnu, z + a_d * dz, w + a_d * dw
     raise RuntimeError(f"portfolio_optimum: no convergence in {max_iter} iterations")
+
+
+def logistic_data(n_samples: int, n_features: int, nnz_per_sample=None, seed: int = 0):
+    """Features Z [N, d] and labels y in {-1, 1} for
+    :func:`logistic_regression`. ``nnz_per_sample`` None: Gaussian Z, a
+    Gaussian w_true and y = sign(Z w_true + 0.3 noise), drawn as
+    ``examples/logistic_regression.py`` draws them (seed 3 there). Else a
+    LIBSVM-style binary Z (scipy CSR) with that many features set to 1 in
+    each row, chosen uniformly (a9a: 123 features, 13.9 set on average), and
+    the labels drawn the same way."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    N, d = n_samples, n_features
+    if nnz_per_sample is None:
+        Z = rng.standard_normal((N, d))
+    else:
+        k = int(nnz_per_sample)
+        cols = np.argsort(rng.random((N, d)), axis=1)[:, :k]
+        Z = sp.csr_matrix((np.ones(N * k), (np.repeat(np.arange(N), k), cols.ravel())),
+                          shape=(N, d))
+    w_true = rng.standard_normal(d)
+    y = np.sign(Z @ w_true + 0.3 * rng.standard_normal(N))
+    return Z, y
+
+
+def logistic_regression(n_samples: int, n_features: int, nnz_per_sample=None,
+                        lam: float = 0.1, seed: int = 0):
+    """L2-regularised logistic regression through exponential cones, the
+    model of ``examples/logistic_regression.py`` (reference:
+    examples/logistic_regression.jl):
+
+        min sum_i log(1 + exp(-y_i z_i'w)) + lam ||w||^2
+
+    over x = [w (d); t (N); v (N); u (N)]: each softplus term
+    log(1 + exp(a_i)) <= t_i (a_i = -y_i z_i'w) is the pair
+    (a_i - t_i, 1, u_i) and (-t_i, 1, v_i) in K_exp with u_i + v_i <= 1.
+    In the internal ``Ax + s = b`` form, rows in the order that
+    ``Model.assemble`` gives the example's constraints: the N rows of
+    u_i + v_i <= 1 (Nonnegatives), then each sample's two exponential
+    cones. ``A`` is scipy CSR (P too). Returns (P, q, A, b, sets, (Z, y)),
+    with Z from :func:`logistic_data`."""
+    import scipy.sparse as sp
+
+    Z, y = logistic_data(n_samples, n_features, nnz_per_sample, seed)
+    N, d = n_samples, n_features
+    n = d + 3 * N
+    t0, v0, u0 = d, d + N, d + 2 * N
+    P = sp.csr_matrix((np.full(d, 2.0 * lam), (np.arange(d), np.arange(d))), shape=(n, n))
+    q = np.concatenate([np.zeros(d), np.ones(N), np.zeros(2 * N)])
+    i = np.arange(N)
+    # the rows of A (s = b - A x); the Nonnegatives rows first
+    Zc = sp.coo_matrix(Z)
+    e1 = N + 6 * i                     # the first cone's rows of sample i
+    rows = [i, i,                      # s_i = 1 - v_i - u_i
+            e1[Zc.row], e1, e1 + 2,    # (a_i - t_i, 1, u_i): -A = [-y_i z_i, -1]
+            e1 + 3, e1 + 5]            # (-t_i, 1, v_i)
+    cols = [v0 + i, u0 + i, Zc.col, t0 + i, u0 + i, t0 + i, v0 + i]
+    vals = [np.ones(N), np.ones(N), y[Zc.row] * Zc.data, np.ones(N), -np.ones(N),
+            np.ones(N), -np.ones(N)]
+    A = sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+                      shape=(7 * N, n))
+    b = np.zeros(7 * N)
+    b[:N] = 1.0
+    b[e1 + 1] = 1.0
+    b[e1 + 4] = 1.0
+    sets = [C.Nonnegatives(N)] + [C.ExponentialCone() for _ in range(2 * N)]
+    return P, q, A, b, sets, (Z, y)
+
+
+def logistic_loss(Z, y, lam: float, w):
+    """sum_i log(1 + exp(-y_i z_i'w)) + lam ||w||^2 and its gradient, in
+    float64 on the host."""
+    margin = y * (Z @ w)
+    loss = float(np.sum(np.logaddexp(0.0, -margin)) + lam * w @ w)
+    sig = 0.5 * (1.0 - np.tanh(0.5 * margin))          # 1 / (1 + exp(margin))
+    grad = -(Z.T @ (y * sig)) + 2.0 * lam * w
+    return loss, np.asarray(grad).ravel()
+
+
+def logistic_optimum(Z, y, lam: float, gtol: float = 1e-10, max_iter: int = 100):
+    """The unconstrained float64 minimum of :func:`logistic_loss` on the
+    host, independent of the ADMM solver: Newton's method with a
+    backtracking line search, to a gradient of ``gtol`` (max norm).
+    Returns (loss, w); raises if it does not get there."""
+    import scipy.sparse as sp
+
+    d = Z.shape[1]
+    w = np.zeros(d)
+    loss, g = logistic_loss(Z, y, lam, w)
+    for _ in range(max_iter):
+        if np.abs(g).max() <= gtol:
+            return loss, w
+        margin = y * (Z @ w)
+        sig = 0.5 * (1.0 - np.tanh(0.5 * margin))
+        weights = sig * (1.0 - sig)
+        H = Z.T @ (Z.multiply(weights[:, None]) if sp.issparse(Z) else Z * weights[:, None])
+        H = (H.toarray() if sp.issparse(H) else H) + 2.0 * lam * np.eye(d)
+        step = np.linalg.solve(H, -g)
+        a = 1.0
+        while True:
+            new_loss, new_g = logistic_loss(Z, y, lam, w + a * step)
+            if new_loss <= loss + 1e-4 * a * (g @ step) or a < 1e-10:
+                break
+            a *= 0.5
+        w, loss, g = w + a * step, new_loss, new_g
+    raise RuntimeError(f"logistic_optimum: gradient {np.abs(g).max():.2e} after "
+                       f"{max_iter} Newton steps")

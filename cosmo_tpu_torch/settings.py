@@ -11,11 +11,12 @@ have no effect here: ``profile_dir``, ``dispatch_chunk`` (the loop is a
 host loop; ``solver.solve_chunked(chunk=N)`` runs N-iteration chunks when
 asked) and ``matmul_precision`` (float32 products always run in full
 float32: the solve sets ``torch.backends.cuda.matmul.allow_tf32 = False``).
-Every other option takes effect as in ``cosmo_tpu``, ``verbose_timing``
-and ``adaptive_rho_interval=0`` (the timed probe) included; the few that
-need a part not ported yet (``mixed_precision``, a custom KKT solver, the
-amortized and ``jacobi_mm`` backends) raise ``NotImplementedError`` when a
-solve uses them.
+Every other option takes effect as in ``cosmo_tpu``, ``verbose_timing``,
+``adaptive_rho_interval=0`` (the timed probe), ``mixed_precision`` (the
+polar projection's products as three TF32 passes during the loose phase)
+and a custom
+KKT solver included; the amortized and ``jacobi_mm`` backends are not
+ported yet and raise ``NotImplementedError`` when a solve uses them.
 """
 from __future__ import annotations
 
@@ -46,8 +47,11 @@ MERGE_NONE = "none"
 @dataclasses.dataclass(eq=False)
 class CustomKKTSolver:
     """User-supplied KKT solver plug-in (reference: the AbstractKKTSolver
-    contract, src/linear_solver/kktsolver.jl:5-11). Accepted as a setting;
-    a solve with it raises ``NotImplementedError`` until it is ported."""
+    contract, src/linear_solver/kktsolver.jl:5-11): ``setup(P, A, sigma,
+    rho_vec) -> state`` at every factorization and ``solve(state, P, A,
+    sigma, rho_vec, r1, r2) -> (x, nu)`` at every iteration, torch
+    callables on the solve's device (P and A as the solve holds them:
+    dense tensors, or ``Coo`` for sparse input)."""
 
     setup: Any = None
     solve: Any = None

@@ -37,6 +37,14 @@ operator variable lives in the block-space layout for the whole loop (the
 block-space x carry of ``cosmo_tpu.solver``): n-space x is materialized
 only at the checks and at exit.
 
+With ``mixed_precision`` the polar projection's float32 products run as
+three TF32 passes (``ops/eigh.matmul_3xtf32``) until the relative
+residuals first fall to ``mixed_precision_switch`` at a termination check
+(a one-way latch, read with that check's flags), then in full float32
+(``cosmo_tpu.solver``: the loose phase). A custom KKT solver
+(``Settings.kkt_solver = CustomKKTSolver(setup, solve)``) takes the place of
+the built-in factor and solve.
+
 A solve can stop and resume: ``return_carry=True`` returns the loop state
 (:class:`LoopCarry`, the device tensors with the host counters and flags)
 and the set-up outputs (:class:`SetupState`); ``carry_in``/``setup_in``
@@ -61,9 +69,9 @@ from .ops import kkt as kkt_ops
 from .ops import projections
 from .ops import residuals as res_ops
 from .ops import scaling as scaling_ops
-from .ops.conedata import not_ported
 from .ops.linops import Coo
 from .settings import DynConfig, StaticConfig, KKT_BLOCK, KKT_CG, KKT_DENSE, KKT_MINRES
+from .utils import printing
 
 RHO_LOG_LEN = 64
 
@@ -126,19 +134,21 @@ def _classify_rows(cones, b, lb, ub, dyn):
 
 
 def check_supported(static: StaticConfig):
-    """Raise NotImplementedError for a configuration this solver lacks."""
-    if not isinstance(static.kkt_solver, str) or static.kkt_solver not in (
+    """Raise ValueError for a KKT solver name this solver does not know (a
+    :class:`~cosmo_tpu_torch.settings.CustomKKTSolver` is taken as is)."""
+    if isinstance(static.kkt_solver, str) and static.kkt_solver not in (
             KKT_DENSE, KKT_BLOCK, KKT_CG, KKT_MINRES):
-        raise not_ported(f"kkt_solver={static.kkt_solver!r}", "custom KKT solvers")
-    if static.mixed_precision:
-        raise not_ported("mixed_precision=True", "mixed precision")
+        raise ValueError(f"unknown kkt_solver {static.kkt_solver!r}")
 
 
 @contextlib.contextmanager
 def _full_f32_matmuls():
     """float32 products in full float32 (no TF32) — the counterpart of the
     JAX package's ``matmul_precision="highest"``: the Anderson Gram, the
-    block inverses' applies and the einsums over the block-dense A."""
+    block inverses' applies and the einsums over the block-dense A. Only
+    the polar projection of the mixed-precision loose phase opts back into
+    TF32, as three passes (``ops/eigh.matmul_3xtf32``): a single
+    reduced-precision pass floors the residuals above the switches."""
     prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -239,6 +249,8 @@ class LoopCarry:
     stag_chks: int = 0
     refine_on: bool = True   # the df32 KKT refinement is latched on
     refine_iter: int = -1    # the iteration at which the latch tripped
+    loose: bool = False      # the mixed-precision loose phase is still on
+    loose_iter: int = -1     # the iteration at which the loose phase ended
     refine_syncs: int = 0    # host waits before the latch tripped
     n_rho_adapt: int = 0
     hist_n: int = 0
@@ -312,6 +324,8 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
     # first termination check under the switch (or on the stall fallbacks)
     refine_gated = static.kkt_refine_gated and static.kkt_refine_steps > 0
 
+    # a user plug-in (reference: AbstractKKTSolver, kktsolver.jl:5-11)
+    custom_kkt = not isinstance(static.kkt_solver, str)
     use_block = static.kkt_solver == KKT_BLOCK
     use_cg = static.kkt_solver in (KKT_CG, KKT_MINRES)
     if use_block and kkt_block is None:
@@ -367,6 +381,8 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
             Einv_v, x_to_block(Dv), cinv_v, Px_pair_g, covered=res_covered)
 
     def kkt_setup(rho_vec):
+        if custom_kkt:
+            return static.kkt_solver.setup(P, A, dyn.sigma, rho_vec)
         if use_cg:
             return None                       # matrix-free: no factor
         if use_block:
@@ -381,6 +397,9 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
 
     def kkt_solve(kkt, rho_vec, r1, r2, refine_on, sol_prev, admm_iter, res_min):
         """(x_tilde, nu, CG steps or None, host reads)"""
+        if custom_kkt:
+            xt, nu = static.kkt_solver.solve(kkt, P, A, dyn.sigma, rho_vec, r1, r2)
+            return xt, nu, None, 0
         steps = static.kkt_refine_steps if (refine_on or not refine_gated) else 0
         if use_cg:
             sched = kkt_ops.cg_tolerance(admm_iter, dyn)
@@ -437,7 +456,7 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
 
     def project(c: LoopCarry, v):
         c.projections += 1
-        return projections.project(v, cones)
+        return projections.project(v, cones, loose=c.loose)
 
     def host(c: LoopCarry, t):
         """A device tensor's values on the host: one wait."""
@@ -483,6 +502,7 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
             due_age=izero, ref_stall=izero, ref_best=big, refine_on=refine_on0,
             sol=sol0, kkt_iters=k0 if use_cg else izero, kkt_reads=reads0,
             redo_reader=_FlagReader(device), plain_reader=_FlagReader(device),
+            loose=bool(static.mixed_precision),
         )
     redo_reader, plain_reader = c.redo_reader, c.plain_reader
 
@@ -572,11 +592,18 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
         fire = torch.zeros_like(conv)
         if accel_on:
             fire = _accel_checks(c, info)
-        unsolved, converged, tripped, fired = host(
-            c, torch.stack([cost.abs() > 1e20, conv, trip, fire]))
+        flags = [cost.abs() > 1e20, conv, trip, fire]
+        if c.loose:
+            # the loose phase ends, one way, at the first check whose
+            # relative residuals reach the switch
+            flags.append(rel > dyn.mixed_precision_switch)
+        row = [cost, info.r_prim, info.r_dual, c.rho] if static.verbose else []
+        read = host(c, torch.stack([f.to(dtype) for f in flags] + row))
+        unsolved, converged, tripped, fired = (bool(f) for f in read[:4])
         if static.verbose:
-            print(f"{c.it}\t{cost.item():.4e}\t{info.r_prim.item():.4e}\t"
-                  f"{info.r_dual.item():.4e}\t{c.rho.item():.4e}")
+            printing.print_history_rows([[c.it, *read[len(flags):]]])
+        if c.loose and not read[4]:
+            c.loose, c.loose_iter = False, c.it
         if unsolved:
             c.status = results.UNSOLVED
         if c.status == results.UNDETERMINED and converged:
@@ -854,6 +881,7 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
         projections=c.projections,
         refine_iter=c.refine_iter,
         refine_syncs=c.refine_syncs,
+        loose_iter=c.loose_iter,
         syncs=waits(c),
         kkt_reads=c.kkt_reads,
     )

@@ -300,3 +300,92 @@ def test_coo_products_on_card_are_segment_sums(cuda):
     assert torch.equal(card[0][0], card[1][0])
     for h, c in zip(host[0], card[0]):
         assert (c.cpu() - h).abs().max().item() <= 1e-12 * max(1.0, h.abs().max().item())
+
+
+def _cone_points(n, dtype, device, seed):
+    """Rows covering the four cases of the exp and pow projections (a
+    Gaussian times a scale from e^-3 to e^3, every 20th row with |z| =
+    1e-9), half of them dual cones, tolerances 1e-8 and 1e-6."""
+    rng = np.random.default_rng(seed)
+    V = rng.standard_normal((n, 3)) * np.exp(rng.uniform(-3, 3, (n, 1)))
+    V[::20, 2] = 1e-9 * np.sign(V[::20, 2])
+    to = dict(dtype=dtype, device=device)
+    return (torch.as_tensor(V, **to), torch.as_tensor(rng.random(n) < 0.5, device=device),
+            torch.as_tensor(np.where(rng.random(n) < 0.5, 1e-8, 1e-6), **to))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_exp_pow_kernel_matches_plain_on_card(cuda, dtype):
+    """The exp/pow kernel against its plain version on the same rows, one
+    counted launch a call, relative to max |V|: float64 to 1e-10 (the
+    same operations; CUDA's log, exp and pow differ from the CPU's in the
+    last bits); float32 exp to 1e-4, float32 pow to 1e-4 on all but 1 row
+    in 1,000 (where the reference's float32 Newton keeps no digit)."""
+    from cosmo_tpu_torch.ops import exp_pow as E
+    from cosmo_tpu_torch.ops import exp_pow_proj as K
+
+    for n in (1, 1000, 65122):
+        V, dual, tol = _cone_points(n, dtype, cuda, seed=n)
+        scale = V.abs().max().item()
+        before = K.project_exp.launches
+        got = K.project_exp(V, dual, tol, 100)
+        torch.cuda.synchronize()
+        assert K.project_exp.launches == before + 1
+        err = (got - E.project_exp_plain(V, dual, tol, 100)).abs().max().item()
+        assert err <= (1e-10 if dtype == torch.float64 else 1e-4) * scale, (n, err)
+        for a in (0.3, 0.5, 0.8):
+            alpha = torch.full((n,), a, dtype=dtype, device=cuda)
+            got = K.project_pow(V, alpha, dual, tol, 20)
+            row = (got - E.project_pow_plain(V, alpha, dual, tol, 20)).abs().amax(1) / scale
+            if dtype == torch.float64:
+                assert row.max().item() <= 1e-10, (n, a)
+            else:
+                assert (row > 1e-4).sum().item() <= max(1, n // 1000), (n, a)
+
+
+@pytest.mark.cuda
+def test_exp_pow_kernel_refuses_bad_input_on_card(cuda):
+    from cosmo_tpu_torch.ops import exp_pow_proj as K
+
+    V, dual, tol = _cone_points(8, torch.float32, cuda, seed=0)
+    with pytest.raises(ValueError):
+        K.exp_proj_cuda(V.half(), dual, tol, 100)
+    with pytest.raises(ValueError):
+        K.exp_proj_cuda(V[:, :2], dual, tol, 100)
+    with pytest.raises(ValueError):
+        K.pow_proj_cuda(V, tol[:4], dual, tol, 20)
+
+
+@pytest.mark.cuda
+def test_logistic_regression_on_card(cuda):
+    """An a9a-shaped logistic regression (2,000 samples) in float64 on the
+    card: Solved, every projection of the 4,000 exp cones one kernel
+    launch, the weights' loss within 1e-6 of the optimum."""
+    from cosmo_tpu_torch.ops import exp_pow_proj as K
+
+    P, q, A, b, sets, (Z, y) = problems.logistic_regression(2000, 123, 14, lam=0.5, seed=0)
+    model = pt.Model(pt.Settings(eps_abs=1e-5, eps_rel=1e-5, dtype=np.float64))
+    K.project_exp.launches = 0
+    res = model.set(P, q, A, b, sets).optimize()
+    assert res.status == "Solved"
+    assert K.project_exp.launches == model.last_solve["projections"] > 0
+    f_opt, _ = problems.logistic_optimum(Z, y, 0.5)
+    loss, _ = problems.logistic_loss(Z, y, 0.5, res.x[:123])
+    assert abs(loss - f_opt) <= 1e-6 * f_opt
+
+
+@pytest.mark.cuda
+def test_loose_phase_products_on_card(cuda):
+    """On the card the loose phase's three TF32 passes keep the polar
+    projection of 256 x 256 blocks within 1e-5 of max |X| of the float32
+    one, where a single TF32 pass is an order of magnitude further off."""
+    from cosmo_tpu_torch.ops import eigh as E
+
+    X = _stack(8, 256, torch.float32, cuda, seed=0)
+    ref = E.psd_project_polar(X.double()).float()
+    three = (E.psd_project_polar(X, tf32=True) - ref).abs().max().item()
+    with E.tf32_matmuls():
+        one = (E._polar(X, 9, 6, torch.matmul) - ref).abs().max().item()
+    scale = X.abs().max().item()
+    assert three <= 1e-5 * scale and one >= 10 * three, (three, one)

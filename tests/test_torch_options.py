@@ -2,8 +2,8 @@
 CPU in float64: the auto rho-adaptation interval (the timed probe through
 the resumable carry), ``set_csc`` with its SCS-style cone dict,
 ``verbose_timing``'s phase timers, and the package surface — the names the
-port exports and the ones that raise ``NotImplementedError`` naming their
-ROADMAP.md item. Ports of tests/test_options.py."""
+port exports, the one-call ``solve`` and the decomposition reports. Ports
+of tests/test_options.py."""
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -118,13 +118,15 @@ def test_set_csc_end_to_end():
 
 
 def test_set_csc_unported_cones_raise():
-    """Exponential and power cones from the cone dict reach compile_cones,
-    which raises NotImplementedError naming their ROADMAP.md item."""
-    model = pt.Model(device="cpu").set_csc(
-        np.zeros(0), np.zeros(0, np.int64), np.zeros(4, np.int64), np.ones(3),
-        -np.ones(3), np.arange(3), np.arange(4), np.zeros(3), {"ep": 1})
-    with pytest.raises(NotImplementedError, match="exp/pow/custom/complex cones"):
-        model.optimize()
+    """An exponential cone from the cone dict, which raised
+    NotImplementedError until the seventh slice, solves through set_csc as
+    in the reference: max x s.t. (x, 1, e^2) in K_exp gives x = 2."""
+    triplets = (np.zeros(0), np.zeros(0, np.int64), np.zeros(2, np.int64), [-1.0],
+                [-1.0], [0], [0, 1], [0.0, 1.0, np.exp(2.0)], {"ep": 1})
+    rt = pt.Model(device="cpu").set_csc(*triplets).optimize()
+    rj = ct.Model().set_csc(*triplets).optimize()
+    assert rt.status == rj.status == "Solved"
+    assert abs(rt.x[0] - 2.0) < 1e-3 and abs(rt.x[0] - rj.x[0]) < 1e-6
 
 
 TIMERS = ("scaling_time", "init_factor_time", "factor_update_time", "proj_time",
@@ -175,11 +177,33 @@ def test_package_exports_match_reference():
 
 
 @pytest.mark.parametrize("name", ["solve", "print_merge_logs", "print_clique_sizes"])
-def test_unported_entry_points_raise(name):
-    """The printing entry points are stubs that raise NotImplementedError
-    naming their ROADMAP.md item (before the sixth slice they did not exist)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, deferred: printing"):
-        getattr(pt, name)()
+def test_entry_points_match_reference(name):
+    """The three entry points that were stubs raising NotImplementedError
+    until the seventh slice: the one-call solve with a cone dict returns
+    the reference's result (within 10x eps = 1e-6), and the two
+    decomposition reports print the reference's lines after a decomposed
+    solve of the banded SDP."""
+    import contextlib
+    import io
+
+    if name == "solve":
+        P, q, A, b, sets = _qp(ct)
+        kw = dict(eps_abs=1e-6, eps_rel=1e-6)
+        rj = ct.solve(P, q, A, b, {"l": sets[0].dim}, **kw)
+        rt = pt.solve(P, q, A, b, {"l": sets[0].dim}, device="cpu", **kw)
+        assert rj.status == rt.status == "Solved"
+        assert np.abs(rt.x - rj.x).max() <= 1e-5 * max(1.0, np.abs(rj.x).max())
+        return
+    out = []
+    for mod, prob, kw in ((ct, jprob, {}), (pt, tprob, dict(device="cpu"))):
+        model = mod.Model(mod.Settings(decompose=True), **kw).set(
+            *prob.banded_sdp(30, 3, seed=0, sparse=True)[:5])
+        model.optimize()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            getattr(mod, name)(model)
+        out.append(buf.getvalue())
+    assert out[0] == out[1] and out[1].count("\n") > 2
 
 
 def test_resolve_methods_exist_and_match_reference():

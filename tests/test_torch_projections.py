@@ -69,6 +69,11 @@ def test_compile_cones_matches_reference():
                         assert v == jb[f], f
         elif isinstance(tv, np.ndarray):
             assert np.array_equal(tv, jd[name]), name
+        elif isinstance(tv, dict):      # the exp and pow stacks (empty here)
+            assert tv.keys() == jd[name].keys(), name
+            for f, v in tv.items():
+                assert np.array_equal(v, jd[name][f]), (name, f)
+                assert np.asarray(v).dtype == np.asarray(jd[name][f]).dtype, (name, f)
         else:
             assert tv == jd[name], name
 
@@ -181,11 +186,34 @@ def test_split_settings_without_device_targets_cuda():
 
 
 @pytest.mark.parametrize("sets,backend", [
-    ([pt.ExponentialCone()], "xla"), ([pt.PowerCone(0.5)], "xla"),
-    ([pt.PsdConeTriangleComplex(4)], "xla"), ([pt.DualExponentialCone()], "xla"),
-    ([pt.DualPowerCone(0.5)], "xla"),
     ([pt.PsdConeTriangle(6)], "amortized"), ([pt.PsdConeTriangle(6)], "jacobi_mm"),
 ])
 def test_unported_cone_features_raise(sets, backend):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tcd.compile_cones(sets, dtype=np.float64, eigh_backend=backend)
+
+
+@pytest.mark.parametrize("cone", [
+    lambda mod: mod.ExponentialCone(), lambda mod: mod.PowerCone(0.5),
+    lambda mod: mod.PsdConeTriangleComplex(4), lambda mod: mod.DualExponentialCone(),
+    lambda mod: mod.DualPowerCone(0.5),
+], ids=["exp", "pow", "complex", "dual_exp", "dual_pow"])
+def test_formerly_unported_cones_project_as_reference(cone):
+    """The cones of test_unported_cone_features_raise that the seventh
+    slice ported, beside a nonnegative block: compiled by each package,
+    the port's cone data match the reference's, and a random vector (10
+    draws, scale 3) projects as the JAX package projects it, to 1e-10 of
+    its largest entry (the plain exp/pow version on the CPU; the complex
+    block's real embedding through LAPACK eigh in both)."""
+    sets_j, sets_t = [ct.Nonnegatives(2), cone(ct)], [pt.Nonnegatives(2), cone(pt)]
+    jc = jcd.compile_cones(sets_j, dtype=np.float64, eigh_backend="xla")
+    tc = tcd.to_device(tcd.compile_cones(sets_t, dtype=np.float64, eigh_backend="xla",
+                                         device="cpu"), "cpu", F64)
+    assert (len(jc.psd_buckets), jc.exp.idx.shape[0], jc.pow.idx.shape[0]) == (
+        len(tc.psd_buckets), tc.exp.idx.shape[0], tc.pow.idx.shape[0])
+    rng = np.random.default_rng(11)
+    for _ in range(10):
+        v = 3.0 * rng.standard_normal(jc.m)
+        ref, _ = _jproject(jnp.asarray(v), jc)
+        got = tproj.project(torch.as_tensor(v), tc)
+        assert np.abs(got.numpy() - np.asarray(ref)).max() <= 1e-10 * np.abs(v).max()

@@ -185,15 +185,56 @@ def test_default_machinery_matches_reference(settings, build, tol):
 
 
 @pytest.mark.parametrize("make_settings,build", [
-    (_with(kkt_solver=pt.CustomKKTSolver(setup=len, solve=len)), _qp),
-    (_with(mixed_precision=True), _qp),
     (_with(eigh_backend="amortized"), _min_eig),
     (_with(eigh_backend="jacobi_mm"), _min_eig),
-], ids=["custom_kkt", "mixed_precision", "amortized", "jacobi_mm"])
+], ids=["amortized", "jacobi_mm"])
 def test_unported_options_raise(make_settings, build):
     model = build(pt, pt.Model(make_settings(), device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         model.optimize()
+
+
+def _dense_kkt_plugin(mod):
+    """The dense KKT solve as a user plug-in, in each package's library."""
+    if mod is ct:
+        import jax.numpy as jnp
+
+        def setup(P, A, sigma, rho):
+            return jnp.linalg.inv(P + sigma * jnp.eye(P.shape[0], dtype=P.dtype)
+                                  + A.T @ (rho[:, None] * A))
+
+        def solve(Minv, P, A, sigma, rho, r1, r2):
+            x = Minv @ (r1 + A.T @ (rho * r2))
+            return x, rho * (A @ x - r2)
+    else:
+        def setup(P, A, sigma, rho):
+            return P + sigma * torch.eye(P.shape[0], dtype=P.dtype) + A.T @ (rho[:, None] * A)
+
+        def solve(M, P, A, sigma, rho, r1, r2):
+            x = torch.linalg.solve(M, r1 + A.T @ (rho * r2))
+            return x, rho * (A @ x - r2)
+    return mod.CustomKKTSolver(setup=setup, solve=solve)
+
+
+@pytest.mark.parametrize("option", ["custom_kkt", "mixed_precision"])
+def test_formerly_unported_plugins_match_reference(option):
+    """The cases of test_unported_options_raise that the seventh slice
+    ported: a custom KKT solver (the dense solve as a plug-in, torch
+    callables in the port) and mixed precision (the polar projection's
+    loose phase), each on the QP of the verify notes, as the reference
+    solves it within 10x its eps = 1e-5."""
+    def settings(mod):
+        extra = (dict(kkt_solver=_dense_kkt_plugin(mod)) if option == "custom_kkt"
+                 else dict(mixed_precision=True, eigh_backend="polar"))
+        return mod.Settings(**dict(PLAIN, **extra))
+
+    rj = _qp(ct, ct.Model(settings(ct))).optimize()
+    mt = _qp(pt, pt.Model(settings(pt), device="cpu"))
+    rt = mt.optimize()
+    assert rt.status == "Solved"
+    _assert_same(rj, rt)
+    if option == "mixed_precision":
+        assert mt.last_solve["loose_iter"] > 0
 
 
 @pytest.mark.parametrize("settings,build,kkt", [
@@ -217,11 +258,16 @@ def test_formerly_unported_options_match_reference(settings, build, kkt):
 
 
 def test_unported_cones_and_mesh_raise():
-    model = pt.Model(pt.Settings(**PLAIN), device="cpu")
-    model.set(np.zeros((3, 3)), np.ones(3), -np.eye(3), np.zeros(3),
-              [pt.ExponentialCone()])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.optimize()
+    """A device mesh still raises; the exponential cone, which raised
+    before the seventh slice, solves as the reference does (max x s.t.
+    (x, 1, e^2) in K_exp: x = 2)."""
+    def build(mod, model):
+        return model.set(np.zeros((1, 1)), [-1.0], [[-1.0], [0.0], [0.0]],
+                         [0.0, 1.0, np.exp(2.0)], [mod.ExponentialCone()])
+
+    _, rj, _, rt = _solve_both(build, PLAIN)
+    assert rt.status == "Solved" and abs(rt.x[0] - 2.0) < 1e-3
+    _assert_same(rj, rt)
     model = _qp(pt, pt.Model(pt.Settings(**PLAIN), device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         model.optimize(mesh=object())

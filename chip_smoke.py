@@ -9,8 +9,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    CUDA versions;
 2. build: compiles both kernels' libraries with nvcc for sm_90a, one nvcc
    per source, all started together: the Jacobi kernels' from
-   ``cosmo_tpu_torch/csrc/jacobi_proj.cu``, ``jacobi_proj_rr.cu`` and
-   ``jacobi_smem.cu``, the exp/pow cone projection's from
+   ``cosmo_tpu_torch/csrc/jacobi_proj.cu``, ``jacobi_proj_rr.cu``,
+   ``jacobi_eig.cu`` and ``jacobi_smem.cu``, the exp/pow cone projection's from
    ``exp_pow_proj.cu``; prints the ptxas reports and fails if any Jacobi
    register body instantiation (``jacobi_proj_regs``) has a stack frame
    or spills, or an exp/pow instantiation spills;
@@ -82,7 +82,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ending, and the loose phase's iter/s against full float32 at fixed
    work; (c) 2,048 3-qubit state estimates through the complex PSD cone
    in float64 and float32 against their closed form, the [2048, 16]
-   bucket through ``jacobi_proj``.
+   bucket through ``jacobi_proj``;
+10. backends and examples: (a) the warm-started Jacobi kernel of the
+   amortized backend (``csrc/jacobi_eig.cu``) against its plain version
+   (float32 and float64, every even k in 4..48 at B in {1, 1000, 2498}
+   and [8540, 8], a warm and a stale case each), timed and bounded at
+   [2498, 16] and [8540, 8] at 2 and 8 sweeps; (b) the decomposed banded
+   SDP of phase 5 with ``eigh_backend="amortized"`` against the known
+   objective, one kernel launch a projection, the share of full-sweep
+   launches read once from the kernel's device tally, and a second solve
+   under ``torch.cuda.set_sync_debug_mode("warn")`` showing that the
+   projection adds no host read; (c) ``block_sdp(512, 16, 512)`` with
+   ``eigh_backend="jacobi_mm"`` against the known objective; (d) every
+   example of ``cosmo_tpu_torch/examples`` through its ``main("cuda")``.
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -192,8 +204,9 @@ def phase_environment():
     return smi
 
 
-# the register body's instantiations: even k in 4..16, f32/f64, two schedules
-REGISTER_BODIES = 2 * 7 * 2
+# the register body's instantiations: even k in 4..16, f32/f64, the two
+# projection schedules and the warm-started eigendecomposition (jacobi_eig)
+REGISTER_BODIES = 3 * 7 * 2
 
 
 def ptxas_frames(report):
@@ -337,15 +350,16 @@ def phase_kernel(device, ks=(4, 6, 8, 10, 12, 14, 16, 24, 32, 48),
     return rows
 
 
-def block_sdp_model(device, dtype, n_blocks=512, side=16, n=512, seed=0):
-    """block_sdp with CSR A set on a Model with plain ADMM, eps 1e-5."""
+def block_sdp_model(device, dtype, n_blocks=512, side=16, n=512, seed=0, **extra):
+    """block_sdp with CSR A set on a Model with plain ADMM, eps 1e-5 (and the
+    settings ``extra``)."""
     import scipy.sparse as sp
     import cosmo_tpu_torch as pt
     from cosmo_tpu_torch import problems
 
     P, q, A, b, sets = problems.block_sdp(n_blocks=n_blocks, side=side, n=n, seed=seed)
     model = pt.Model(pt.Settings(accelerator=None, decompose=False, eps_abs=1e-5,
-                                 eps_rel=1e-5, dtype=dtype), device=device)
+                                 eps_rel=1e-5, dtype=dtype, **extra), device=device)
     return model.set(P, q, sp.csr_matrix(A), b, sets)
 
 
@@ -354,16 +368,19 @@ def counted_optimize(model, on_iter=None):
     0 just before and read just after; returns (result, {kernel:
     launches})."""
     from cosmo_tpu_torch.ops import exp_pow_proj as K
+    from cosmo_tpu_torch.ops import jacobi_eig as JE
     from cosmo_tpu_torch.ops import jacobi_proj as J
     from cosmo_tpu_torch.ops import jacobi_proj_rr as R
 
     J.psd_project_pallas.launches = R.psd_project_rr.launches = 0
     K.project_exp.launches = K.project_pow.launches = 0
+    JE.reset_counts()
     res = model.optimize(on_iter=on_iter)
     return res, {"jacobi_proj": J.psd_project_pallas.launches,
                  "jacobi_proj_rr": R.psd_project_rr.launches,
                  "exp_pow_proj/exp": K.project_exp.launches,
-                 "exp_pow_proj/pow": K.project_pow.launches}
+                 "exp_pow_proj/pow": K.project_pow.launches,
+                 "jacobi_eig": sum(JE.psd_project_amortized.launches.values())}
 
 
 def phase_slice(device, smi):
@@ -1254,6 +1271,281 @@ def phase_tomography(device, smi, seed, n_states=2048, r=8):
     return out
 
 
+# phase 10a: the warm-started Jacobi kernel's shapes (every even k of its
+# domain at B in {1, 1000, 2498}, and the maxcut bucket's [8540, 8]) and the
+# two timed at 2 (warm) and 8 (stale) sweeps: the banded path's [2498, 16]
+# and [8540, 8]
+EIG_SIDES = tuple(range(4, 49, 2))
+EIG_BATCHES = (1, 1000, 2498)
+EIG_TIMED = ((16, 2498), (8, 8540))
+WARM_SWEEPS = 2
+
+
+def eig_case(B, k, warm, dtype, device, seed):
+    """(X, W, V0) of one amortized projection, made from ``seed``: X a
+    symmetric Gaussian stack; warm, V0 its eigenbasis (numpy, float64)
+    turned by a random orthogonal matrix near I (angles ~0.01: a block's
+    off-diagonal mass stays a few percent of its energy, under the
+    staleness rule's 9%) and W = V0' X V0 symmetrised; stale, V0 = I and
+    W = X."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((B, k, k))
+    X = (G + G.swapaxes(1, 2)) / 2
+    if warm:
+        R = rng.standard_normal((B, k, k)) * 0.01
+        R, _ = np.linalg.qr(np.eye(k) + (R - R.swapaxes(1, 2)))
+        V0 = np.linalg.eigh(X)[1] @ R
+        W = V0.swapaxes(1, 2) @ X @ V0
+        W = (W + W.swapaxes(1, 2)) / 2
+    else:
+        V0, W = np.broadcast_to(np.eye(k), (B, k, k)), X
+    return tuple(torch.as_tensor(np.array(a, order="C"), dtype=dtype, device=device)
+                 for a in (X, W, V0))
+
+
+def eig_bound_ms(B, k, dtype_name, sweeps):
+    """Least time of one warm-started Jacobi call on an H100: the larger of
+    its flops at the card's peak for the type (n_pairs rotations a sweep,
+    each 18k + 20 flops, then P = V max(w, 0) V', 2k^3, and its
+    symmetrisation, k^2) and its bytes (W and V0 read once, P and V written
+    once) at the memory rate. The kernel sums each entry of P twice, once
+    for each side of the symmetrisation; the function needs one sum."""
+    itemsize = 4 if dtype_name == "float32" else 8
+    flops = B * (sweeps * (k - 1) * (k // 2) * (18 * k + 20) + 2 * k**3 + k**2)
+    nbytes = 4 * B * k * k * itemsize
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def eig_library(W, V0):
+    """The same function through ``torch.linalg.eigh``: V = V0 Q, P = V
+    max(w, 0) V' (the kernels line's ``library_ms``; the port never calls
+    it)."""
+    import torch
+
+    w, Q = torch.linalg.eigh(W)
+    V = V0 @ Q
+    return V @ (torch.clamp(w, min=0.0)[:, :, None] * V.transpose(1, 2)), V
+
+
+def eig_diffs(X, got, ref):
+    """max |P - P_ref|, max |V - V_ref|, and max |R - R_ref| with R = V
+    diag(V'XV) V': R does not change under rotations among eigenvectors of
+    nearly equal eigenvalues, which float32 rounding does not determine."""
+    import torch
+
+    def rec(V):
+        d = torch.diagonal(V.transpose(1, 2) @ X @ V, dim1=1, dim2=2)
+        return V @ (d[:, :, None] * V.transpose(1, 2))
+
+    return ((got[0] - ref[0]).abs().max().item(), (got[1] - ref[1]).abs().max().item(),
+            (rec(got[1]) - rec(ref[1])).abs().max().item())
+
+
+def phase_eig_kernel(device, reps=20):
+    """10a: the warm-started Jacobi kernel (jacobi_eig) against its plain
+    version, float32 and float64, at every shape of ``EIG_SIDES`` by
+    ``EIG_BATCHES`` and [8540, 8], one warm case (V0 near W's eigenbasis, 2
+    sweeps) and one stale (V0 = I, 8 sweeps) each, each of which the
+    backend's staleness rule (``eigh.amortized_rotate``) classes as such: P
+    and V diag(V'XV) V' within ``TOL`` of max |X|, and in float64 V itself
+    (max |V - V_ref| is logged for float32). At ``EIG_TIMED`` the kernel
+    (``launch_ms`` and ``device_ms``), its plain version and
+    ``eig_library`` are timed and bounded, and the torch part of the
+    amortized projection before the kernel (``eigh.amortized_rotate``) is
+    timed beside them."""
+    import torch
+    from cosmo_tpu_torch.kernel_timing import device_ms, launch_ms
+    from cosmo_tpu_torch.ops import eigh as E
+    from cosmo_tpu_torch.ops import jacobi_eig as JE
+
+    rows = []
+    shapes = [(k, B) for k in EIG_SIDES for B in EIG_BATCHES] + [(8, 8540)]
+    for dtype_name in ("float32", "float64"):
+        dtype = getattr(torch, dtype_name)
+        tol = TOL[dtype_name]
+        for k, B in shapes:
+            for warm in (True, False):
+                X, W, V0 = eig_case(B, k, warm, dtype, device, seed=1000 * k + B + warm)
+                stale = E.amortized_rotate(X, V0)[2]
+                if bool(stale) == warm:
+                    raise AssertionError(f"10a: the staleness rule calls the warm={warm} "
+                                         f"case at k={k}, B={B} the other")
+                sweeps = WARM_SWEEPS if warm else SWEEPS
+
+                def kernel():
+                    return JE.jacobi_eig_cuda(W, V0, stale, WARM_SWEEPS, SWEEPS)
+
+                def plain():
+                    return JE.jacobi_eig_plain(W, V0, stale, WARM_SWEEPS, SWEEPS)
+
+                got = kernel()
+                torch.cuda.synchronize()
+                dP, dV, dR = eig_diffs(X, got, plain())
+                scale = X.abs().max().item()
+                ok = all(np.isfinite((dP, dV, dR))) and dP <= tol * scale and (
+                    dR <= tol * scale) and (dtype_name == "float32" or dV <= tol * scale)
+                timed = (k, B) in EIG_TIMED
+                bound_ms, bound_by = eig_bound_ms(B, k, dtype_name, sweeps)
+                row = dict(kernel="jacobi_eig", dtype=dtype_name, k=k, B=B, sweeps=sweeps,
+                           max_abs_err=max(dP, dR) if dtype_name == "float32"
+                           else max(dP, dV, dR), max_abs_err_P=dP, max_abs_err_V=dV,
+                           max_abs_err_rec=dR, max_abs_x=scale, tol_rel=tol, ok=ok,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           ms=launch_ms(kernel, reps) if timed else None,
+                           device_ms=device_ms(kernel, reps) if timed else None,
+                           plain_ms=launch_ms(plain, 3) if timed else None,
+                           library_ms=(launch_ms(lambda: eig_library(W, V0), reps)
+                                       if timed else None),
+                           rotate_ms=(launch_ms(lambda: E.amortized_rotate(X, V0), reps)
+                                      if timed else None))
+                rows.append(row)
+                times = ("" if not timed else
+                         f" ms={row['ms']:.4f} device={row['device_ms']:.4f} plain="
+                         f"{row['plain_ms']:.3f} eigh={row['library_ms']:.3f} (torch "
+                         f"rotation before the kernel {row['rotate_ms']:.4f})")
+                log(f"[backends] jacobi_eig {dtype_name} k={k:2d} B={B:5d} sweeps={sweeps} "
+                    f"err P {dP:.3e} V {dV:.3e} V diag(V'XV) V' {dR:.3e} (tol {tol:.0e}*"
+                    f"{scale:.2f}){times} bound={bound_ms:.5f} ({bound_by}) "
+                    f"{'ok' if ok else 'FAIL'}")
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"jacobi_eig disagrees with its plain version: {bad}")
+    return rows
+
+
+def phase_amortized(device, smi):
+    """10b: the decomposed banded SDP at phase 5's settings (plain ADMM,
+    float64) with eigh_backend="amortized": Solved within 1e-6 of
+    ``REF_BANDED``, one jacobi_eig launch a projection (its one [2498, 16]
+    bucket) and no other Jacobi kernel's; the device tally of full-sweep
+    launches read once at the end. A second solve on the same model runs
+    under ``torch.cuda.set_sync_debug_mode("warn")``: the synchronizing
+    calls torch flags beyond the solver's own host waits stay under 0.1 an
+    iteration (a host read of the sweep count would add one each)."""
+    import warnings
+
+    import torch
+    import cosmo_tpu_torch as pt
+    from cosmo_tpu_torch import problems
+    from cosmo_tpu_torch.ops import jacobi_eig as JE
+
+    data = problems.banded_sdp(10000, 8, seed=0, sparse=True)[:5]
+    settings = pt.Settings(decompose=True, accelerator=None, dtype=np.float64,
+                           eps_abs=1e-5, eps_rel=1e-5, max_iter=20000,
+                           eigh_backend="amortized")
+    model = pt.Model(settings, device=device).set(*data)
+    res, counts = counted_optimize(model)
+    n_full = JE.full_sweep_count(device)
+    info, t = model.last_solve, res.times
+    err = abs(res.obj_val - REF_BANDED) / abs(REF_BANDED)
+    launches = counts["jacobi_eig"]
+    out = dict(status=res.status, iter=res.iter, obj=res.obj_val, rel_err=err,
+               setup_s=t.setup_time, graph_s=t.graph_time, solve_s=info["iter_time"],
+               iter_per_s=res.iter / info["iter_time"], launches=launches,
+               full_sweep_launches=n_full, projections=info["projections"],
+               syncs=info["syncs"], host_waits_per_iter=info["syncs"] / max(res.iter, 1),
+               buckets=[(b.batch, b.side) for b in model._dev_cache["cones"].psd_buckets])
+    log(f"[backends] 10b banded_sdp(10000, 8) float64 amortized: {res.status}, "
+        f"{res.iter} iters, obj {res.obj_val:.12f} (rel err {err:.2e}, limit 1e-06), "
+        f"setup {t.setup_time:.3f} s, solve {info['iter_time']:.3f} s, "
+        f"{out['iter_per_s']:.1f} iter/s, PSD buckets {out['buckets']} "
+        f"{info['bucket_backends']}, jacobi_eig launches {launches} ({n_full} full "
+        f"sweeps, {n_full / max(launches, 1):.3f} of them) / projections "
+        f"{info['projections']}, other kernels {counts}, solver host waits "
+        f"{info['syncs']} ({out['host_waits_per_iter']:.4f} an iteration) [{smi}]")
+    if res.status != "Solved" or not err <= 1e-6:
+        raise AssertionError(f"10b: {res.status}, obj {res.obj_val}")
+    if (info["bucket_backends"] != ("amortized",) or info["kkt_solver"] != "blockdiag"
+            or not launches == info["projections"] > 0
+            or counts["jacobi_proj"] or counts["jacobi_proj_rr"]):
+        raise AssertionError(f"10b left its path: {info}, {counts}")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res2 = model.optimize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    flagged = sum("synchroniz" in str(w.message) for w in caught)
+    extra = (flagged - model.last_solve["syncs"]) / max(res2.iter, 1)
+    out.update(sync_debug_iter=res2.iter, flagged_syncs=flagged,
+               sync_debug_solver_syncs=model.last_solve["syncs"],
+               flagged_beyond_solver_per_iter=extra)
+    log(f"[backends] 10b under sync debug: {res2.status}, {res2.iter} iters, "
+        f"torch-flagged synchronizing calls {flagged}, solver host waits "
+        f"{model.last_solve['syncs']}: {extra:.4f} flagged an iteration beyond the "
+        f"solver's (limit 0.1)")
+    if res2.status != "Solved" or not extra < 0.1:
+        raise AssertionError(f"10b sync debug: {res2.status}, {out}")
+    return out
+
+
+def phase_jacobi_mm(device, smi):
+    """10c: block_sdp(512, 16, 512) at phase 4's plain float64 settings with
+    eigh_backend="jacobi_mm" (the packed-rotation Jacobi as batched
+    products, torch ops): Solved within 1e-6 of ``REF_OBJ``, no Jacobi
+    kernel launched."""
+    model = block_sdp_model(device, np.float64, eigh_backend="jacobi_mm")
+    res, counts = counted_optimize(model)
+    info = model.last_solve
+    err = abs(res.obj_val - REF_OBJ) / abs(REF_OBJ)
+    out = dict(status=res.status, iter=res.iter, obj=res.obj_val, rel_err=err,
+               solve_s=info["iter_time"], iter_per_s=res.iter / info["iter_time"],
+               projections=info["projections"], backends=info["bucket_backends"])
+    log(f"[backends] 10c block_sdp(512,16,512) float64 jacobi_mm: {res.status}, "
+        f"{res.iter} iters, obj {res.obj_val:.13f} (rel err {err:.2e}, limit 1e-06), "
+        f"solve {info['iter_time']:.3f} s, {out['iter_per_s']:.2f} iter/s, PSD backend "
+        f"{info['bucket_backends']}, kernel launches {counts} [{smi}]")
+    if res.status != "Solved" or not err <= 1e-6:
+        raise AssertionError(f"10c: {res.status}, obj {res.obj_val}")
+    if info["bucket_backends"] != ("jacobi_mm",) or any(counts.values()):
+        raise AssertionError(f"10c left its path: {info}, {counts}")
+    return out
+
+
+def phase_examples(device):
+    """10d: every example of ``cosmo_tpu_torch/examples`` through its
+    ``main("cuda")`` in float64, in this process; its own assertions
+    decide. Logs the seconds of each. The objects of the earlier phases are
+    frozen out of the garbage collector first: ``portfolio_backtest``
+    asserts that a re-solve beats the first solve on the host clock (the
+    first captures the scaling graph that the re-solves replay, tens of
+    milliseconds), which a full collection over this process's heap could
+    swamp."""
+    import gc
+    import importlib
+
+    from cosmo_tpu_torch.examples import EXAMPLES
+
+    seconds = {}
+    gc.collect()
+    gc.freeze()
+    try:
+        for name in EXAMPLES:
+            t = time.perf_counter()
+            importlib.import_module(f"cosmo_tpu_torch.examples.{name}").main(str(device))
+            seconds[name] = time.perf_counter() - t
+            log(f"[backends] 10d example {name}: ok in {seconds[name]:.2f} s")
+    finally:
+        gc.unfreeze()
+    return seconds
+
+
+def phase_backends(device, smi):
+    """10a-10d."""
+    out = {}
+    for name, run in (("eig_kernel", lambda: phase_eig_kernel(device)),
+                      ("amortized", lambda: phase_amortized(device, smi)),
+                      ("jacobi_mm", lambda: phase_jacobi_mm(device, smi)),
+                      ("examples", lambda: phase_examples(device))):
+        t = time.perf_counter()
+        out[name] = run()
+        out[f"{name}_s"] = time.perf_counter() - t
+    return out
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1289,6 +1581,7 @@ def main(argv=None):
     maxcut = timed("maxcut", lambda: phase_maxcut(device, smi))
     cg = timed("cg", lambda: phase_cg(device, smi, args.seed))
     cones = timed("cones", lambda: phase_cones(device, smi, args.seed))
+    backends = timed("backends", lambda: phase_backends(device, smi))
     seconds["total"] = time.perf_counter() - t0
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
 
@@ -1343,6 +1636,22 @@ def main(argv=None):
             path="logistic_a9a" if alpha is None else "known pow_cone",
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=None))
+    # the warm-started Jacobi kernel at the 10b path's shape (B = 2498, k =
+    # 16, float64): one row at the warm sweeps with the path's warm
+    # launches, one at the full sweeps with its full-sweep launches
+    amortized = backends["amortized"]
+    for sweeps, launches in (
+            (WARM_SWEEPS, amortized["launches"] - amortized["full_sweep_launches"]),
+            (SWEEPS, amortized["full_sweep_launches"])):
+        row = next(r for r in backends["eig_kernel"] if r["dtype"] == "float64"
+                   and r["k"] == 16 and r["B"] == 2498 and r["sweeps"] == sweeps)
+        kernels.append(dict(
+            name="jacobi_eig", route="cuda", source="cosmo_tpu_torch/csrc/jacobi_eig.cu",
+            replaces="cosmo_tpu/ops/eigh.py:266", launches=launches,
+            max_abs_err=row["max_abs_err"], ms=row["ms"], device_ms=row["device_ms"],
+            shape=dict(B=2498, k=16, dtype="float64", sweeps=sweeps),
+            path="banded_amortized", plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"]))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
@@ -1350,7 +1659,7 @@ def main(argv=None):
                            seconds=seconds, kernel=kernel_rows, slice=slice_out,
                            known=known, plugins=plugins, decomposed=decomposed,
                            default=default, maxcut=maxcut, cg=cg, cones=cones,
-                           kernels=kernels),
+                           backends=backends, kernels=kernels),
                       f, indent=1, default=str)
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -14,15 +14,19 @@ device="cpu")``). K is any product of the zero, nonnegative, box,
 second-order, PSD (real or complex Hermitian), exponential and power cones
 and their duals, and user-defined cones. It takes dense, block-dense or
 sparse input through the dense, block-diagonal or matrix-free CG/MINRES
-KKT solve, with chordal decomposition of sparse PSD constraints. Two
-hand-written CUDA kernels carry the projections: the Jacobi PSD projection
-of small blocks (``ops/jacobi_proj.py``, ``csrc/jacobi_proj.cu``) and the
-exponential and power cones' (``ops/exp_pow_proj.py``,
-``csrc/exp_pow_proj.cu``).
+KKT solve, with chordal decomposition of sparse PSD constraints. Hand-written
+CUDA kernels carry the projections: the Jacobi PSD projection of small
+blocks (``ops/jacobi_proj.py``, ``csrc/jacobi_proj.cu``), its warm-started
+variant for the amortized backend, which carries each PSD bucket's
+eigenbasis across iterations (``ops/jacobi_eig.py``,
+``csrc/jacobi_eig.cu``), and the exponential and power cones'
+(``ops/exp_pow_proj.py``, ``csrc/exp_pow_proj.cu``). The examples of the
+JAX package have their port in :mod:`.examples`
+(``python -m cosmo_tpu_torch.examples.lp [--device cpu]``).
 
 This package imports neither JAX nor ``cosmo_tpu``. What it does not port
-yet (the amortized and ``jacobi_mm`` backends and a device mesh) raises
-``NotImplementedError`` naming the ROADMAP.md item that will.
+yet (a device mesh; on a CUDA device the amortized backend above side 48)
+raises ``NotImplementedError`` naming the ROADMAP.md item that will.
 """
 from .models.cones import (
     Box,

@@ -7,7 +7,8 @@ DIR is the root of another checkout of the repository, for instance the
 parent commit unpacked with ``git archive``. Each tree builds its own
 kernel sources into its own ``_build``; every kernel is then timed on the
 same inputs at the shapes of :data:`SHAPES`, in turns other, this, this,
-other, with both :func:`launch_ms` and :func:`device_ms`. Needs CUDA.
+other, with both :func:`launch_ms` and :func:`device_ms`, and each line
+says whether the two trees' outputs are the same bits. Needs CUDA.
 """
 from __future__ import annotations
 
@@ -100,7 +101,8 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(card)
-    print("each kernel: launch_ms other, this, this, other | device_ms the same")
+    print("each kernel: launch_ms other, this, this, other | device_ms the same | "
+          "outputs of the two trees bit-identical")
     device = torch.device("cuda")
     for k, B in SHAPES:
         for dtype in (torch.float32, torch.float64):
@@ -108,7 +110,7 @@ def main(argv=None):
             X = torch.as_tensor((G + G.swapaxes(1, 2)) / 2, dtype=dtype, device=device)
             line = f"k={k} B={B} {str(dtype).split('.')[1]}"
             for name in ("jacobi_proj", "jacobi_proj_rr"):
-                launch, dev = [], []
+                launch, dev, outs = [], [], {}
                 for tree in ("other", "this", "this", "other"):
                     builder, lib, tables = kernels[tree, name]
                     pairs = tables(k, device)
@@ -119,8 +121,10 @@ def main(argv=None):
                     reps = 10 if k >= 32 else 20
                     launch.append(launch_ms(fn, reps))
                     dev.append(device_ms(fn, reps))
+                    outs[tree] = fn()
                 line += (f" | {name} " + " ".join(f"{t:.4f}" for t in launch)
-                         + " | " + " ".join(f"{t:.4f}" for t in dev))
+                         + " | " + " ".join(f"{t:.4f}" for t in dev)
+                         + f" | same bits {torch.equal(outs['this'], outs['other'])}")
             print(line, flush=True)
 
 

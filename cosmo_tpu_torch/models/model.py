@@ -20,8 +20,10 @@ data, as in ``cosmo_tpu``: the decomposition by its settings
 operators and cones by the solve's structure (``struct_key``). The device
 copies of q and b, and of the starting vectors, are cached apart from them
 by version: ``update`` and the warm starts bump a counter, and a re-solve
-moves only the vectors whose version changed. ``set``/``assemble`` drop
-everything.
+moves only the vectors whose version changed. On a CUDA device the
+structure's cache also keeps the scaling's CUDA graph
+(``ops/scaling.RuizGraph``): the first solve captures it, a re-solve
+replays it. ``set``/``assemble`` drop everything.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from .. import solver as solver_mod
 from ..ops import blockkkt, conedata, jacobi_proj
 from ..ops import kkt as kkt_ops
 from ..ops import linops
+from ..ops import scaling as scaling_ops
 from ..ops.conedata import not_ported
 from ..settings import (KKT_BLOCK, KKT_CG, KKT_DENSE, KKT_MINRES, Settings,
                         split_settings, torch_dtype)
@@ -82,6 +85,8 @@ class Model:
         self.sets: List[C.ConvexSet] = []
         self.x0 = self.s0 = self.mu0 = None
         self.is_assembled = False
+        # whether the last solve ran on a chordally decomposed problem
+        self.is_decomposed = False
         self._drop_caches()
         # versions of q/b and of the starting vectors: a re-solve moves only
         # the device vectors whose version changed
@@ -182,6 +187,7 @@ class Model:
     def _store(self, P, q, A, b, sets):
         self.P, self.q, self.A, self.b, self.sets = P, q, A, b, sets
         self.is_assembled = True
+        self.is_decomposed = False
         self._drop_caches()
         m, n = A.shape
         self.x0, self.s0, self.mu0 = np.zeros(n), np.zeros(m), np.zeros(m)
@@ -305,8 +311,9 @@ class Model:
     def _device_problem(self, settings, dtype, P, A, sets, chordal_info):
         """The device copies of the solve's structure, cached by
         ``struct_key``: dict with use_sparse, cones, kkt_block (device meta
-        or None), Pd, Ad and rho_row_scale; :meth:`_device_vectors` adds
-        the vectors."""
+        or None), Pd, Ad, rho_row_scale and, on a CUDA device, the scaling
+        graph that the re-solves replay; :meth:`_device_vectors` adds the
+        vectors."""
         use_sparse = settings.sparse is True or (
             settings.sparse == "auto" and (sp.issparse(A) or sp.issparse(P)))
         struct_key = (
@@ -348,6 +355,8 @@ class Model:
             kkt_block=(None if kkt_block is None
                        else blockkkt.meta_to_device(kkt_block, self.device)),
             Pd=Pd, Ad=Ad, kkt_precond=None,
+            scale_graph=(scaling_ops.RuizGraph() if self.device.type == "cuda"
+                         else None),
             rho_row_scale=_rho_row_scale(settings, chordal_info, sets, A.shape[0],
                                          dtype, self.device),
             qb_version=None, ws_version=None,
@@ -388,6 +397,7 @@ class Model:
         # ---- chordal decomposition (host, reference: chordal_decomposition.jl)
         t_graph = time.perf_counter()
         P, q, A, b, sets, chordal_info = self._decompose(settings)
+        self.is_decomposed = chordal_info is not None
         times.graph_time = time.perf_counter() - t_graph
 
         t_setup = time.perf_counter()
@@ -435,7 +445,8 @@ class Model:
         args = (dev["Pd"], dev["Ad"], dev["qd"], dev["bd"], cones,
                 dev["x0"], dev["s0"], dev["mu0"])
         kw = dict(kkt_block=kkt_block, rho_row_scale=dev["rho_row_scale"],
-                  on_iter=on_iter, deadline=deadline, kkt_precond=kkt_precond)
+                  on_iter=on_iter, deadline=deadline, kkt_precond=kkt_precond,
+                  scale_graph=dev["scale_graph"])
         out = carry = setup = None
         if (settings.adaptive_rho and settings.adaptive_rho_interval == 0
                 and settings.max_iter > 2 * settings.check_termination):
@@ -546,7 +557,7 @@ class Model:
         clock between device syncs (best of 3 after a warm-up call), times
         how often the solve ran it."""
         from .. import accel
-        from ..ops import projections, scaling as scaling_ops
+        from ..ops import projections
 
         def timed(fn, reps=3):
             fn()
@@ -567,8 +578,10 @@ class Model:
         sigma, steps = dyn.sigma, static.kkt_refine_steps
         rho_vec = dyn.rho.expand(m).clone()
         r1 = torch.ones_like(qd)
+        # the amortized backend projects from a fresh basis (the full sweeps)
+        eig0 = projections.init_eig_state(cones, qd.dtype, self.device)
         with solver_mod._full_f32_matmuls():
-            times.proj_time = timed(lambda: projections.project(bd, cones)) * n_iter
+            times.proj_time = timed(lambda: projections.project(bd, cones, eig0)) * n_iter
             times.scaling_time = (timed(lambda: scaling_ops.ruiz_scale(
                 Pd, Ad, qd, bd, cones, static.scaling_iters, dyn))
                 if static.scaling_iters > 0 else 0.0)

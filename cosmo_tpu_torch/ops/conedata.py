@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..models import cones as C
+from .eigh import kernel_takes
 from .linops import to_device as _array_to_device
 
 SQRT2 = np.sqrt(2.0)
@@ -204,6 +205,11 @@ def to_device(cones: ConeData, device, dtype: torch.dtype) -> ConeData:
     )
 
 
+def _on_cuda(device) -> bool:
+    """Whether ``device`` (None: ``cuda``) is a CUDA device."""
+    return torch.device("cuda" if device is None else device).type == "cuda"
+
+
 def resolve_eigh_backend(requested: str, buckets=None, accel_on: bool = True,
                          decomposed: bool = False, device=None) -> str:
     """Resolve an ``"auto"`` PSD projection backend for ``device`` (None:
@@ -223,7 +229,7 @@ def resolve_eigh_backend(requested: str, buckets=None, accel_on: bool = True,
     """
     if requested != "auto":
         return requested
-    if torch.device("cuda" if device is None else device).type != "cuda":
+    if not _on_cuda(device):
         return "xla"
     if (buckets is not None and len(buckets) == 1
             and buckets[0].side <= AUTO_KERNEL_MAX_SIDE):
@@ -252,10 +258,10 @@ def compile_cones(sets: List[C.ConvexSet], dtype=np.float64, psd_pad_to: int = 8
                   decomposed: bool = False, device=None) -> ConeData:
     """Build the batched cone representation (numpy arrays) from an ordered
     cone list. ``device`` is where the solve will run (None: ``cuda``): the
-    ``"auto"`` backend resolves for it (:func:`resolve_eigh_backend`)."""
-    if eigh_backend in ("amortized", "jacobi_mm"):
-        raise not_ported(f"eigh_backend={eigh_backend!r}",
-                         "amortized/jacobi_mm backends")
+    ``"auto"`` backend resolves for it (:func:`resolve_eigh_backend`).
+    ``"amortized"`` on a CUDA device takes the sides of its Jacobi kernel
+    (even 4..48, ``ops/jacobi_eig.py``) and raises for a bucket of another
+    side; the CPU takes every side through the plain version."""
 
     m = sum(s.dim for s in sets)
     DUMP = m
@@ -372,6 +378,11 @@ def compile_cones(sets: List[C.ConvexSet], dtype=np.float64, psd_pad_to: int = 8
     requested = eigh_backend
     eigh_backend = resolve_eigh_backend(eigh_backend, psd_buckets, accel_on,
                                         decomposed, device)
+    if eigh_backend == "amortized" and _on_cuda(device):
+        for b in psd_buckets:
+            if not kernel_takes(b.side):
+                raise not_ported(f"eigh_backend='amortized' on a PSD bucket of side "
+                                 f"{b.side} on a CUDA device", "amortized above side 48")
     if (
         requested == "auto"
         and eigh_backend == "polar"

@@ -24,27 +24,21 @@ from typing import Sequence
 
 import torch
 
+from .eigh import kernel_takes
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the Jacobi kernels' library: the round-robin and the slot-rotation
-# schedules' C entries, and the shared-memory body both use
-JACOBI_SOURCES = ("jacobi_proj.cu", "jacobi_proj_rr.cu", "jacobi_smem.cu")
+# schedules' C entries, the warm-started eigendecomposition's, and the
+# shared-memory body all three use
+JACOBI_SOURCES = ("jacobi_proj.cu", "jacobi_proj_rr.cu", "jacobi_eig.cu",
+                  "jacobi_smem.cu")
 JACOBI_ENTRIES = ("jacobi_proj", "jacobi_proj_rr")
 # the exp/pow cone projection's library: one source, one entry a family
 EXP_POW_SOURCES = ("exp_pow_proj.cu",)
-
-# the side limits both Jacobi kernels take (pallas_eigh.py:257-266)
-KERNEL_MIN_SIDE = 4
-KERNEL_MAX_SIDE = 48
-
-
-def kernel_takes(k: int) -> bool:
-    """The reference wrapper's domain rule: even k in [4, 48]."""
-    return k % 2 == 0 and KERNEL_MIN_SIDE <= k <= KERNEL_MAX_SIDE
-
 
 def _nvcc() -> str:
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
@@ -128,14 +122,19 @@ def jacobi_library() -> ctypes.CDLL:
     """Build and load the Jacobi kernels' library. Its C entries
     ``<prefix>_f32`` and ``<prefix>_f64``, for each prefix of
     :data:`JACOBI_ENTRIES`, are ``int f(const T* x, T* out, const uint8_t*
-    pairs, int B, int k, int sweeps, void* stream)`` returning
+    pairs, int B, int k, int sweeps, void* stream)``; ``jacobi_eig_f32`` and
+    ``jacobi_eig_f64`` are ``int f(const T* w, const T* v0, T* p, T* v,
+    const uint8_t* pairs, const uint8_t* stale, int warm, int full, int*
+    n_full, int B, int k, void* stream)``. Each returns
     ``cudaGetLastError()``."""
     lib = ctypes.CDLL(str(build_jacobi()))
-    for prefix in JACOBI_ENTRIES:
-        for fn in (getattr(lib, f"{prefix}_f32"), getattr(lib, f"{prefix}_f64")):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for t in ("f32", "f64"):
+        for prefix in JACOBI_ENTRIES:
+            getattr(lib, f"{prefix}_{t}").argtypes = [p, p, p, i, i, i, p]
+        getattr(lib, f"jacobi_eig_{t}").argtypes = [p, p, p, p, p, p, i, i, p, i, i, p]
+        for prefix in (*JACOBI_ENTRIES, "jacobi_eig"):
+            getattr(lib, f"{prefix}_{t}").restype = i
     return lib
 
 

@@ -41,7 +41,7 @@ import torch
 from . import cuda_build
 from . import eigh as eigh_mod
 from . import jacobi_proj_rr
-from .cuda_build import kernel_takes
+from .eigh import kernel_takes
 
 
 def pair_schedule(k: int) -> np.ndarray:

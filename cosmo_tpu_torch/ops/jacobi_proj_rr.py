@@ -33,7 +33,7 @@ import torch
 
 from . import cuda_build
 from . import eigh as eigh_mod
-from .cuda_build import kernel_takes
+from .eigh import kernel_takes
 
 
 def _slot_rotate(labels: np.ndarray) -> np.ndarray:

@@ -6,6 +6,8 @@ The composite projection is a fixed sequence of batched ops:
 1. one elementwise clip covering Zero/Nonnegatives/Box rows,
 2. one vectorized SOC projection per SOC bucket,
 3. one batched PSD projection per PSD bucket (gather -> project -> scatter);
+   with the ``"amortized"`` backend each bucket's eigenbasis is carried
+   from one projection to the next (:func:`init_eig_state`);
 4. one kernel launch for all exponential cones and one for all power cones
    (:mod:`.exp_pow_proj`; the plain version on the CPU);
 5. each custom cone's own projection on its slice.
@@ -17,6 +19,7 @@ import torch
 from . import eigh as eigh_mod
 from . import exp_pow
 from . import exp_pow_proj
+from . import jacobi_eig
 from . import jacobi_proj
 from .conedata import ConeData, PsdBucket, resolve_eigh_backend
 
@@ -96,17 +99,37 @@ def _psd_project_bucket(X, cones: ConeData, bucket: PsdBucket | None = None,
         return jacobi_proj.psd_project_pallas(X, cones.jacobi_sweeps)
     if backend == "polar":
         return eigh_mod.psd_project_polar(X, tf32=loose)
-    if backend == "jacobi":
-        return eigh_mod.psd_project_jacobi(X, cones.jacobi_sweeps)
+    if backend in ("jacobi", "jacobi_mm"):
+        method = "mm" if backend == "jacobi_mm" else "vec"
+        return eigh_mod.psd_project_jacobi(X, cones.jacobi_sweeps, method)
     if backend == "xla":
         return eigh_mod.psd_project_eigh(X)
     raise ValueError(f"unknown eigh_backend {backend!r}")
 
 
-def project(w2, cones: ConeData, loose: bool = False):
+def init_eig_state(cones: ConeData, dtype, device):
+    """The first eigenbasis carry of the ``"amortized"`` backend: an
+    identity stack a PSD bucket (the staleness guard then runs the full
+    sweeps on the first projection); ``()`` for every other backend
+    (``cosmo_tpu.ops.projections.init_eig_state``)."""
+    if resolve_eigh_backend(cones.eigh_backend, device=device) != "amortized":
+        return ()
+    return tuple(
+        torch.eye(b.side, dtype=dtype, device=device).expand(b.batch, b.side, b.side)
+        .contiguous()
+        for b in cones.psd_buckets
+    )
+
+
+def project(w2, cones: ConeData, eig_state=(), loose: bool = False):
     """s = Pi_K(w2): project the slack part of the operator variable onto K
-    (replaces admm_z!'s fan-out, reference: src/solver.jl:7-21).
-    ``loose``: the mixed-precision phase flag (:func:`_psd_project_bucket`)."""
+    (replaces admm_z!'s fan-out, reference: src/solver.jl:7-21). Returns
+    ``(s, eig_state)``: the state, one eigenbasis a PSD bucket, is carried
+    only by the ``"amortized"`` backend, which projects every PSD bucket
+    from it (:func:`init_eig_state`; the buckets' own backends do not
+    apply), and is ``()`` otherwise. ``loose``: the mixed-precision phase
+    flag (:func:`_psd_project_bucket`)."""
+    amortized = resolve_eigh_backend(cones.eigh_backend, device=w2.device) == "amortized"
     s = torch.clamp(w2, cones.lb, cones.ub)
     v_ext = _ext(w2)
 
@@ -116,8 +139,15 @@ def project(w2, cones: ConeData, loose: bool = False):
         s_ext[bucket.idx] = P
         s = s_ext[:-1]
 
-    for bucket in cones.psd_buckets:
-        Y = _psd_project_bucket(_psd_gather(v_ext, bucket), cones, bucket, loose)
+    new_state = []
+    for i, bucket in enumerate(cones.psd_buckets):
+        X = _psd_gather(v_ext, bucket)
+        if amortized:
+            Y, V = jacobi_eig.psd_project_amortized(
+                X, eig_state[i], warm_sweeps=2, full_sweeps=cones.jacobi_sweeps)
+            new_state.append(V)
+        else:
+            Y = _psd_project_bucket(X, cones, bucket, loose)
         s = _psd_scatter(s, Y, bucket)
 
     ec, pc = cones.exp, cones.pow
@@ -130,7 +160,7 @@ def project(w2, cones: ConeData, loose: bool = False):
 
     for offset, cone in cones.custom:
         s[offset:offset + cone.dim] = cone.project(w2[offset:offset + cone.dim])
-    return s
+    return s, tuple(new_state)
 
 
 def _set_rows(s, idx, P):

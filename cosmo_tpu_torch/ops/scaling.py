@@ -40,9 +40,70 @@ def _limit_scaling(s, dyn):
                        torch.minimum(s, dyn.max_scaling))
 
 
-def ruiz_scale(P, A, q, b, cones: ConeData, iters: int, dyn):
+def ruiz_scale(P, A, q, b, cones: ConeData, iters: int, dyn,
+               graph: "RuizGraph | None" = None):
     """Equilibrate (P, q, A, b); returns the scaled data, the scaled cone
-    bounds and the ScaleMats."""
+    bounds and the ScaleMats. ``graph``: a :class:`RuizGraph` that runs the
+    equilibration where it takes the operands (:meth:`RuizGraph.takes`),
+    else it runs eagerly."""
+    if graph is not None and graph.takes(P, A, q):
+        return graph.run(P, A, q, b, cones, iters, dyn)
+    return _ruiz(P, A, q, b, cones, iters, dyn)
+
+
+class _Limits(NamedTuple):
+    """The two scaling bounds :func:`_limit_scaling` reads."""
+
+    min_scaling: torch.Tensor
+    max_scaling: torch.Tensor
+
+
+class RuizGraph:
+    """:func:`ruiz_scale` of a dense P and A on a CUDA device as a CUDA
+    graph, kept across the solves of one problem. The equilibration is some
+    40 operations an iteration, each a launch the host issues; the first
+    call captures them on static copies of q, b and the two scaling bounds,
+    and a later call with the same P, A, cones and iteration count copies
+    its q, b and bounds in and replays them as one launch. The replayed
+    operations are the eager ones, on the same values. The outputs are the
+    graph's own buffers: they hold until the next call, so a solver keeps
+    one for the solves of one problem, one at a time."""
+
+    def __init__(self):
+        self.key = None
+
+    @staticmethod
+    def takes(P, A, q) -> bool:
+        return q.is_cuda and type(P) is torch.Tensor and type(A) is torch.Tensor
+
+    def _capture(self, key, P, A, q, b, cones, iters, dyn):
+        self.key, self.refs = key, (P, A, cones)    # keep the captured alive
+        self.q, self.b = q.clone(), b.clone()
+        self.lim = _Limits(dyn.min_scaling.clone(), dyn.max_scaling.clone())
+        # a warm-up outside the capture (allocator and library state)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _ruiz(P, A, self.q, self.b, cones, iters, self.lim)
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = _ruiz(P, A, self.q, self.b, cones, iters, self.lim)
+
+    def run(self, P, A, q, b, cones, iters: int, dyn):
+        key = (id(P), id(A), id(cones), iters, q.dtype, q.shape[0], b.shape[0])
+        if key != self.key:
+            self._capture(key, P, A, q, b, cones, iters, dyn)
+        self.q.copy_(q)
+        self.b.copy_(b)
+        self.lim.min_scaling.copy_(dyn.min_scaling)
+        self.lim.max_scaling.copy_(dyn.max_scaling)
+        self.graph.replay()
+        return self.out
+
+
+def _ruiz(P, A, q, b, cones: ConeData, iters: int, dyn):
+    """The equilibration of :func:`ruiz_scale`, eagerly."""
     n = q.shape[0]
     m = b.shape[0]
     D = torch.ones_like(q)

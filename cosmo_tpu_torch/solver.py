@@ -234,6 +234,7 @@ class LoopCarry:
     ref_stall: Any = None  # device int32: stagnant checks while refinement is off
     ref_best: Any = None   # best residual score seen while refinement is off
     sol: Any = None      # [n+m] last KKT solution, the CG/MINRES warm start
+    eig: Any = ()        # the amortized backend's eigenbases, one a PSD bucket
     kkt_iters: Any = None  # device int32: inner CG/MINRES steps
     redo_reader: Any = None   # _FlagReader of ``redo``
     plain_reader: Any = None  # _FlagReader: this pass did not accelerate
@@ -263,7 +264,7 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
           kkt_block=None, rho_row_scale=None,
           on_iter: Optional[Callable[[int, bool], None]] = None,
           deadline: Optional[float] = None, kkt_precond=None, carry_in=None,
-          return_carry: bool = False, setup_in=None):
+          return_carry: bool = False, setup_in=None, scale_graph=None):
     """Full solve of ``min 1/2 x'Px + q'x s.t. Ax + s = b, s in K`` on the
     device of ``q``, with float32 products in full float32. ``cones`` is a
     device ConeData. With the dense KKT, ``P`` is a dense tensor and ``A``
@@ -282,17 +283,20 @@ def solve(P, A, q, b, cones, x0, s0, mu0, dyn: DynConfig, static: StaticConfig,
     ``"setup"`` of an earlier ``return_carry=True`` solve of the same
     problem; the loop resumes from them (``x0``, ``s0`` and ``mu0`` are then
     ignored) and runs until ``dyn.max_iter`` counts all its iterations.
+    ``scale_graph``: a :class:`~cosmo_tpu_torch.ops.scaling.RuizGraph` that
+    runs the scaling (a caller that solves one problem again keeps one).
     Returns a dict of host values (numpy arrays and Python numbers), plus
     ``"carry"`` and ``"setup"`` with ``return_carry``."""
     check_supported(static)
     with _full_f32_matmuls():
         return _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block,
                       rho_row_scale, on_iter, deadline, kkt_precond, carry_in,
-                      return_carry, setup_in)
+                      return_carry, setup_in, scale_graph)
 
 
 def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale,
-           on_iter, deadline, kkt_precond, carry_in, return_carry, setup_in):
+           on_iter, deadline, kkt_precond, carry_in, return_carry, setup_in,
+           scale_graph):
     m, n = static.m, static.n
     dtype, device = q.dtype, q.device
     accel_on = static.accel_mem > 0
@@ -305,7 +309,7 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
         P, A, q, b, lb, ub, sm, rho_class = setup_in
     elif static.scaling_iters > 0:
         P, A, q, b, lb, ub, sm = scaling_ops.ruiz_scale(
-            P, A, q, b, cones, static.scaling_iters, dyn
+            P, A, q, b, cones, static.scaling_iters, dyn, graph=scale_graph
         )
     else:
         sm = scaling_ops.identity_scale(m, n, dtype, device)
@@ -454,9 +458,16 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
         """Moreau: mu = rho (w - Pi(w)) (solver.jl:23-26)."""
         return rho_vec * (w_prev[nx:] - s)
 
-    def project(c: LoopCarry, v):
+    def project(c: LoopCarry, v, eig):
+        """(Pi_K(v), the eigenbasis carry after it) from the carry ``eig``."""
         c.projections += 1
-        return projections.project(v, cones, loose=c.loose)
+        return projections.project(v, cones, eig, loose=c.loose)
+
+    # the amortized backend's identity carry: the main trajectory's first
+    # projection and every shadow projection start from it (the staleness
+    # guard then runs the full sweeps); the shadow never reuses the main
+    # iterate's basis (cosmo_tpu.solver)
+    eig_fresh = projections.init_eig_state(cones, dtype, device)
 
     def host(c: LoopCarry, t):
         """A device tensor's values on the host: one wait."""
@@ -502,7 +513,7 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
             due_age=izero, ref_stall=izero, ref_best=big, refine_on=refine_on0,
             sol=sol0, kkt_iters=k0 if use_cg else izero, kkt_reads=reads0,
             redo_reader=_FlagReader(device), plain_reader=_FlagReader(device),
-            loose=bool(static.mixed_precision),
+            loose=bool(static.mixed_precision), eig=eig_fresh,
         )
     redo_reader, plain_reader = c.redo_reader, c.plain_reader
 
@@ -677,7 +688,7 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
     def shadow_step(c: LoopCarry):
         """One plain ADMM step of the certificate shadow trajectory; the
         first step after arming captures the delta base."""
-        s_sh = project(c, c.w_sh[nx:])
+        s_sh, _ = project(c, c.w_sh[nx:], eig_fresh)
         mu_sh = c.rho_vec * (c.w_sh[nx:] - s_sh)
         if c.dy_age == 0:
             c.dy, c.dx = mu_sh, c.w_sh[:nx]
@@ -798,7 +809,9 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
             shadow_step(c)
 
         c.w_prev = c.w
-        c.s = project(c, c.w[nx:])
+        # a declined step's redo pass keeps the basis the declined
+        # projection produced, as the reference does
+        c.s, c.eig = project(c, c.w[nx:], c.eig)
 
         # a redo pass repeats the declined step and counts as a
         # safeguarding iteration (accelerator_interface.jl:96-109)

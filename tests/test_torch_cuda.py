@@ -11,6 +11,8 @@ import torch
 
 import cosmo_tpu_torch as pt
 from cosmo_tpu_torch import problems
+from cosmo_tpu_torch.ops import eigh
+from cosmo_tpu_torch.ops import jacobi_eig as JE
 from cosmo_tpu_torch.ops import jacobi_proj as J
 from cosmo_tpu_torch.ops import jacobi_proj_rr as R
 
@@ -271,6 +273,52 @@ def test_cg_graph_replays_the_eager_steps_on_card(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ruiz_graph_replays_the_eager_scaling_on_card(cuda, dtype):
+    """ops/scaling.RuizGraph gives the eager equilibration's bits on three
+    right-hand sides of one dense problem with a second-order cone (the
+    rectified segments), capturing at the first; a Model keeps one graph
+    across update() re-solves, captured once, and lands on the CPU's
+    objective within 1e-6 relative (f64)."""
+    from cosmo_tpu_torch.ops import scaling as scaling_ops
+    from cosmo_tpu_torch.settings import split_settings
+
+    rng = np.random.default_rng(0)
+    n = 8
+    M = rng.standard_normal((n, n))
+    P, q = M @ M.T / n + np.eye(n), rng.standard_normal(n)
+    cons = [pt.Constraint(np.eye(n), np.zeros(n), pt.Nonnegatives),
+            pt.Constraint(np.vstack([np.zeros((1, n)), np.eye(n)[:4]]),
+                          np.r_[1.0, np.zeros(4)], pt.SecondOrderCone)]
+    s = pt.Settings(dtype=np.float64 if dtype == torch.float64 else np.float32)
+    model = pt.Model(s)
+    model.assemble(P, q, cons)
+    model.optimize()
+    dev = model._dev_cache
+    m = dev["bd"].shape[0]
+    static, dyn = split_settings(model._resolved_settings, m, n, dtype, device=cuda)
+    graph = scaling_ops.RuizGraph()
+    flat = lambda out: [*out[:6], *out[6]]  # noqa: E731
+    for seed in (1, 2, 3):
+        r = np.random.default_rng(seed)
+        qd = torch.as_tensor(r.standard_normal(n) * 10.0 ** r.integers(-3, 3), dtype=dtype,
+                             device=cuda)
+        bd = torch.as_tensor(r.standard_normal(m), dtype=dtype, device=cuda)
+        args = (dev["Pd"], dev["Ad"], qd, bd, dev["cones"], static.scaling_iters, dyn)
+        eager = [t.clone() for t in flat(scaling_ops.ruiz_scale(*args))]
+        replayed = flat(scaling_ops.ruiz_scale(*args, graph=graph))
+        assert all(torch.equal(e, g) for e, g in zip(eager, replayed))
+    captured = dev["scale_graph"].graph
+    for scale in (2.0, 0.5):
+        res = model.update(q=q * scale).optimize()
+        assert dev["scale_graph"].graph is captured
+        if dtype == torch.float64:
+            ref = pt.Model(s, device="cpu").assemble(P, q * scale, cons).optimize()
+            assert res.status == ref.status == "Solved"
+            assert abs(res.obj_val - ref.obj_val) <= 1e-6 * max(1.0, abs(ref.obj_val))
+
+
+@pytest.mark.cuda
 def test_coo_products_on_card_are_segment_sums(cuda):
     """On the card a Coo's products, diagonal and column sums are the
     CPU's sums within 1e-12 in f64, with a long row (the portfolio's factor
@@ -389,3 +437,99 @@ def test_loose_phase_products_on_card(cuda):
         one = (E._polar(X, 9, 6, torch.matmul) - ref).abs().max().item()
     scale = X.abs().max().item()
     assert three <= 1e-5 * scale and one >= 10 * three, (three, one)
+
+
+def _eig_case(B, k, warm, dtype, device, seed):
+    """(X, W, V0) of one amortized projection: X symmetric Gaussian; warm,
+    V0 its eigenbasis turned by an orthogonal matrix near I (angles ~0.01,
+    under the staleness rule) and W = V0' X V0; stale, V0 = I and W = X."""
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((B, k, k))
+    X = (G + G.swapaxes(1, 2)) / 2
+    if warm:
+        R = rng.standard_normal((B, k, k)) * 0.01
+        R, _ = np.linalg.qr(np.eye(k) + (R - R.swapaxes(1, 2)))
+        V0 = np.linalg.eigh(X)[1] @ R
+        W = V0.swapaxes(1, 2) @ X @ V0
+        W = (W + W.swapaxes(1, 2)) / 2
+    else:
+        V0, W = np.broadcast_to(np.eye(k), (B, k, k)), X
+    return tuple(torch.as_tensor(np.array(a, order="C"), dtype=dtype, device=device)
+                 for a in (X, W, V0))
+
+
+def _eig_diff(X, got, ref):
+    """max |P - P_ref|, max |V - V_ref| and the largest difference of V
+    diag(V'XV) V' between the two (unchanged by rotations among the
+    eigenvectors of nearly equal eigenvalues, which rounding does not
+    determine in float32)."""
+    def rec(V):
+        d = torch.diagonal(V.transpose(1, 2) @ X @ V, dim1=1, dim2=2)
+        return V @ (d[:, :, None] * V.transpose(1, 2))
+
+    return ((got[0] - ref[0]).abs().max().item(), (got[1] - ref[1]).abs().max().item(),
+            (rec(got[1]) - rec(ref[1])).abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+def test_jacobi_eig_kernel_matches_plain_on_card(cuda, dtype, tol):
+    """The warm-started Jacobi kernel against its plain version, every
+    even k of its domain, B in {1, 31, 2498} (k <= 16) or {1, 31}, warm (2
+    sweeps) and stale (8 sweeps, from I), as the staleness rule classes
+    them: one full-sweep tally a stale launch; P and V diag(V'XV) V' within ``tol``
+    of max |X|, and in float64 V itself."""
+    JE.reset_counts()
+    n_stale = 0
+    for k in range(4, 49, 2):
+        for B in (1, 31, 2498) if k <= 16 else (1, 31):
+            for warm in (True, False):
+                X, W, V0 = _eig_case(B, k, warm, dtype, cuda, seed=100 * k + B)
+                stale = eigh.amortized_rotate(X, V0)[2]
+                assert bool(stale) != warm, (k, B, warm)
+                n_stale += not warm
+                got = JE.jacobi_eig_cuda(W, V0, stale, 2, 8, JE._tally(cuda))
+                torch.cuda.synchronize()
+                ref = JE.jacobi_eig_plain(W, V0, stale, 2, 8)
+                dP, dV, dR = _eig_diff(X, got, ref)
+                scale = X.abs().max().item()
+                assert dP <= tol * scale and dR <= tol * scale, (k, B, warm, dP, dR)
+                if dtype == torch.float64:
+                    assert dV <= tol * scale, (k, B, warm, dV)
+    assert JE.full_sweep_count(cuda) == n_stale
+
+
+@pytest.mark.cuda
+def test_jacobi_eig_refuses_bad_input_on_card(cuda):
+    _, W, V0 = _eig_case(4, 16, True, torch.float32, cuda, seed=0)
+    stale = torch.tensor(False, device=cuda)
+    for args in ((W.transpose(1, 2), V0), (W, V0.transpose(1, 2)), (W.half(), V0.half()),
+                 (W, V0.double()), (W[:, :15, :15].contiguous(), V0[:, :15, :15].contiguous()),
+                 (W.cpu(), V0.cpu())):
+        with pytest.raises(ValueError):
+            JE.jacobi_eig_cuda(*args, stale, 2, 8)
+    _, W50, V50 = _eig_case(2, 50, False, torch.float32, cuda, seed=0)
+    with pytest.raises(ValueError):
+        JE.jacobi_eig_cuda(W50, V50, stale, 2, 8)
+    with pytest.raises(ValueError):
+        JE.jacobi_eig_cuda(W, V0, stale.int(), 2, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["amortized", "jacobi_mm"])
+def test_eigh_backends_solve_on_card(cuda, backend):
+    """block_sdp(12, 8, 48) with the amortized and the jacobi_mm backend on
+    the card in float64, against the same solve on the CPU (objective
+    within 1e-6 relative); the amortized one launches the kernel once a
+    projection."""
+    P, q, A, b, sets = problems.block_sdp(n_blocks=12, side=8, n=48, seed=5)
+    s = pt.Settings(eps_abs=1e-7, eps_rel=1e-7, eigh_backend=backend, jacobi_sweeps=10,
+                    dtype=np.float64)
+    JE.reset_counts()
+    model = pt.Model(s)
+    res = model.set(P, q, A, b, sets).optimize()
+    ref = pt.Model(s, device="cpu").set(P, q, A, b, sets).optimize()
+    assert res.status == ref.status == "Solved"
+    assert abs(res.obj_val - ref.obj_val) <= 1e-6 * abs(ref.obj_val)
+    launches = sum(JE.psd_project_amortized.launches.values())
+    assert launches == (model.last_solve["projections"] if backend == "amortized" else 0)

@@ -177,7 +177,7 @@ def test_converted_cones_project_as_reference():
     tc = convert.cones_from_dict(as_numpy_dict(jc), "cpu", torch.float64)
     v = np.random.default_rng(6).standard_normal(jc.m) * 3
     ref, _ = jax.jit(jproj.project)(jnp.asarray(v), jc)
-    got = tproj.project(torch.as_tensor(v), tc)
+    got, _ = tproj.project(torch.as_tensor(v), tc)
     assert np.abs(got.numpy() - np.asarray(ref)).max() <= 1e-10 * np.abs(v).max()
     for tol in (0.0, 1e-3):
         y = torch.as_tensor(-np.abs(v))

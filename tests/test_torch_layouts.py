@@ -49,7 +49,7 @@ def _compile_both(make_sets):
 
 def _project_both(v, jc, tc):
     sj, _ = jpr.project(jnp_array(v), jc)
-    return np.asarray(sj), tpr.project(torch.tensor(v), tc).numpy()
+    return np.asarray(sj), tpr.project(torch.tensor(v), tc)[0].numpy()
 
 
 def jnp_array(v):
@@ -99,9 +99,9 @@ def test_shear_fast_path_matches_index_maps(r):
     _same_buckets(jc, tc)
     v = rng.standard_normal(tc.m)
     sj, st = _project_both(v, jc, tc)
-    s_maps = tpr.project(torch.tensor(v), _index_maps_only(tc)).numpy()
+    s_maps = tpr.project(torch.tensor(v), _index_maps_only(tc))[0].numpy()
     carried = convert.cones_from_dict(as_numpy_dict(jc), "cpu", F64)
-    s_carried = tpr.project(torch.tensor(v), carried).numpy()
+    s_carried = tpr.project(torch.tensor(v), carried)[0].numpy()
     for other in (s_maps, sj, s_carried):
         np.testing.assert_allclose(st, other, rtol=1e-12, atol=1e-12)
     # a positive semidefinite point is inside the cone (margins exactly on
@@ -134,14 +134,14 @@ def test_colpad_projection_matches_triangle_layout():
     jc_c, tc_c = _compile_both(lambda M: [M.PsdConeTriangleColPad(r * r)])
     assert tc_c.psd_buckets[0].fastpath == "colpad"
     _same_buckets(jc_c, tc_c)
-    s_t = tpr.project(torch.tensor(v_tri), tc_t).numpy()
+    s_t = tpr.project(torch.tensor(v_tri), tc_t)[0].numpy()
     sj, s_c = _project_both(v_cp, jc_c, tc_c)
     pads = [j * r + i for j in range(r) for i in range(j + 1, r)]
     assert np.all(s_c[pads] == 0.0)
     np.testing.assert_allclose(s_c, _colpad_of(s_t, r), atol=1e-12)
     np.testing.assert_allclose(s_c, sj, atol=1e-12)
     np.testing.assert_allclose(
-        tpr.project(torch.tensor(v_cp), _index_maps_only(tc_c)).numpy(), s_c, atol=1e-12)
+        tpr.project(torch.tensor(v_cp), _index_maps_only(tc_c))[0].numpy(), s_c, atol=1e-12)
     Xt = tpr._psd_gather(tpr._ext(torch.tensor(v_tri)), tc_t.psd_buckets[0])
     Xc = tpr._psd_gather(tpr._ext(torch.tensor(v_cp)), tc_c.psd_buckets[0])
     np.testing.assert_allclose(Xt.numpy(), Xc.numpy(), atol=1e-12)
@@ -170,7 +170,7 @@ def test_colpad_blocks_survive_small_bucket_consolidation():
     for cone in make(TC):
         one = tcd.to_device(tcd.compile_cones([type(cone)(cone.dim)], dtype=np.float64,
                                               device="cpu"), "cpu", F64)
-        s_one = tpr.project(torch.tensor(v[off:off + cone.dim]), one).numpy()
+        s_one = tpr.project(torch.tensor(v[off:off + cone.dim]), one)[0].numpy()
         np.testing.assert_allclose(s_all[off:off + cone.dim], s_one, atol=1e-12,
                                    err_msg=f"cone at offset {off}")
         off += cone.dim

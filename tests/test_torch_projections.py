@@ -85,7 +85,7 @@ def test_project_matches(backend_j, backend_t):
     tc = dataclasses.replace(tc, eigh_backend=backend_t)
     for v in _vectors(jc.m, seed=0):
         js, _ = _jproject(jnp.asarray(v), jc)
-        ts = tproj.project(torch.as_tensor(v), tc)
+        ts, _ = tproj.project(torch.as_tensor(v), tc)
         assert np.abs(np.asarray(js) - ts.numpy()).max() <= 1e-10 * max(1.0, np.abs(v).max())
 
 
@@ -95,7 +95,7 @@ def test_polar_projection_matches():
     jc, tc = _compiled("polar")
     for v in _vectors(jc.m, seed=5, count=2):
         js, _ = _jproject(jnp.asarray(v), jc)
-        ts = tproj.project(torch.as_tensor(v), tc)
+        ts, _ = tproj.project(torch.as_tensor(v), tc)
         assert np.abs(np.asarray(js) - ts.numpy()).max() <= 1e-10 * np.abs(v).max()
 
 
@@ -189,8 +189,29 @@ def test_split_settings_without_device_targets_cuda():
     ([pt.PsdConeTriangle(6)], "amortized"), ([pt.PsdConeTriangle(6)], "jacobi_mm"),
 ])
 def test_unported_cone_features_raise(sets, backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcd.compile_cones(sets, dtype=np.float64, eigh_backend=backend)
+    """The backends of these cases raised until the eighth slice ported
+    them: both compile as themselves for either device, and a side-3 block
+    (padded to 8) projects as the reference projects it, to 1e-10 of the
+    largest entry (amortized: the first projection from the identity carry,
+    then a second from the carry the first returned)."""
+    for device in (None, "cpu"):
+        assert tcd.compile_cones(sets, dtype=np.float64, eigh_backend=backend,
+                                 device=device).eigh_backend == backend
+    sets_j = [ct.PsdConeTriangle(6)]
+    jc = jcd.compile_cones(sets_j, dtype=np.float64, eigh_backend=backend)
+    tc = tcd.to_device(tcd.compile_cones(sets, dtype=np.float64, eigh_backend=backend,
+                                         device="cpu"), "cpu", F64)
+    rng = np.random.default_rng(5)
+    js = jproj.init_eig_state(jc, jnp.float64)
+    ts = tproj.init_eig_state(tc, F64, "cpu")
+    assert len(ts) == len(js) == (1 if backend == "amortized" else 0)
+    for _ in range(2):
+        v = 3.0 * rng.standard_normal(jc.m)
+        ref, js = _jproject(jnp.asarray(v), jc, js)
+        got, ts = tproj.project(torch.as_tensor(v), tc, ts)
+        assert np.abs(got.numpy() - np.asarray(ref)).max() <= 1e-10 * np.abs(v).max()
+        for a, b in zip(js, ts):
+            assert np.abs(b.numpy() - np.asarray(a)).max() <= 1e-10
 
 
 @pytest.mark.parametrize("cone", [
@@ -215,5 +236,5 @@ def test_formerly_unported_cones_project_as_reference(cone):
     for _ in range(10):
         v = 3.0 * rng.standard_normal(jc.m)
         ref, _ = _jproject(jnp.asarray(v), jc)
-        got = tproj.project(torch.as_tensor(v), tc)
+        got, _ = tproj.project(torch.as_tensor(v), tc)
         assert np.abs(got.numpy() - np.asarray(ref)).max() <= 1e-10 * np.abs(v).max()

@@ -20,6 +20,7 @@ from cosmo_tpu import problems as jprob
 from cosmo_tpu_torch import problems as tprob
 from cosmo_tpu_torch import solver as tsolver
 from cosmo_tpu_torch.models.model import refine_hint
+from cosmo_tpu_torch.ops.scaling import RuizGraph, ruiz_scale
 from cosmo_tpu_torch.settings import split_settings
 
 torch.set_num_threads(1)
@@ -158,6 +159,24 @@ def test_resolve_moves_only_changed_vectors():
     mt.warm_start(x0=np.ones(8)).optimize()
     assert dev["qd"] is qd and dev["x0"] is not first["x0"]
     assert torch.equal(dev["x0"], torch.ones(8, dtype=torch.float64))
+
+
+def test_scaling_graph_only_on_cuda():
+    """A Model on the CPU keeps no scaling graph, and ruiz_scale handed one
+    runs eagerly there: ops/scaling.RuizGraph takes dense CUDA operands
+    only (tests/test_torch_cuda.py holds its replays to the eager bits)."""
+    mt = pt.Model(device="cpu").set(*_qp(pt))
+    mt.optimize()
+    assert mt._dev_cache["scale_graph"] is None
+    args, dyn, static = _solver_inputs(mt)
+    P, A, q, b, cones = args[:5]
+    graph = RuizGraph()
+    assert not graph.takes(P, A, q)
+    eager = ruiz_scale(P, A, q, b, cones, static.scaling_iters, dyn)
+    handed = ruiz_scale(P, A, q, b, cones, static.scaling_iters, dyn, graph=graph)
+    assert graph.key is None
+    flat = lambda out: [*out[:6], *out[6]]  # noqa: E731
+    assert all(torch.equal(e, h) for e, h in zip(flat(eager), flat(handed)))
 
 
 def _solver_inputs(model):

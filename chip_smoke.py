@@ -71,9 +71,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    within ``PORTFOLIO_GAP_TOL`` and the objective within twice that gap of
    the optimum of ``problems.portfolio_optimum`` (the gamma = 1 objective
    is also reported against the JAX package's ``REF_PORTFOLIO``); (c) the
-   gamma = 1 problem through ``solver.solve_chunked`` in chunks of 100
-   iterations against the uninterrupted solve (the same status, objective
-   within 1e-5); (d) the re-solve with ``verbose_timing``, its phase
+   gamma = 1 problem's first 100 iterations through
+   ``solver.solve_chunked`` in chunks of 50 against the same iterations
+   in one call (the same status and iterations, objective within 1e-5;
+   the whole solve in chunks is left out for the run's time); (d) the
+   re-solve with ``verbose_timing``, its phase
    timers finite, positive where the solve ran the phase;
 9. cones: (a) the a9a-shaped logistic regression (65,122 exponential
    cones, float64, defaults, eps 1e-5) against ``logistic_optimum``, the
@@ -94,7 +96,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    under ``torch.cuda.set_sync_debug_mode("warn")`` showing that the
    projection adds no host read; (c) ``block_sdp(512, 16, 512)`` with
    ``eigh_backend="jacobi_mm"`` against the known objective; (d) every
-   example of ``cosmo_tpu_torch/examples`` through its ``main("cuda")``.
+   example of ``cosmo_tpu_torch/examples`` through its ``main("cuda")``;
+11. mesh: ``Model.optimize(mesh=parallel.make_mesh())`` on ranks it spawns
+   (gloo on the loopback, each process group with a 300 s time limit), after
+   the unsharded references: (a) maxcut-10k at ``_bench_maxcut10k``'s
+   settings with plain ADMM for 100 iterations on 2 gloo ranks that share
+   the card, x and s within rtol 2e-4, atol 1e-5 of the unsharded run,
+   each rank's [4270, 8] share of the side-8 bucket through ``jacobi_proj``
+   on every projection (the launch counters) and the [1, 896] colpad
+   bucket matrix-row sharded; (b) the banded SDP of phase 5 in float64 on
+   the 2 ranks, Solved at ``REF_BANDED``, x within 1e-6 of phase 5's first
+   solve, its iterations, iter/s and collectives an iteration beside phase
+   5's; (c) the same problem for 200 iterations on a one-rank NCCL group,
+   within 1e-9 relative of the unsharded run. Every rank's x, y and s must
+   have the same bits; a rank that fails fails the run.
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -136,6 +151,8 @@ PORTFOLIO = dict(eps_abs=1e-5, eps_rel=1e-5, dtype=np.float64)
 PORTFOLIO_K = 200
 # the re-solve after the cold gamma = 1 (gamma = 0.5 and 4 left out for time)
 PORTFOLIO_GAMMA = 2.0
+# phase 8c: the chunked solve's depth and chunk
+CHUNKED_ITERS, CHUNK = 100, 50
 # the optimum of problems.portfolio(200, gamma, seed=0), independent of the
 # ADMM solver: problems.portfolio_optimum(200, gamma) (an interior-point
 # method in float64 on the host, to a complementarity gap below 1e-13)
@@ -178,6 +195,20 @@ REF_BLOCK8X256 = -0.7128210624599856
 # phase 9c: plain ADMM (the auto backend then gives the embedded [2048, 16]
 # bucket the Jacobi kernel), eps 1e-5
 TOMOGRAPHY = dict(accelerator=None, decompose=False, eps_abs=1e-5, eps_rel=1e-5)
+# phase 5's plain settings (float64), also phase 11b's
+BANDED_PLAIN = dict(decompose=True, accelerator=None, dtype=np.float64,
+                    eps_abs=1e-5, eps_rel=1e-5, max_iter=20000)
+# phase 11: the mesh on gloo ranks that share the card (11a, 11b) and on a
+# one-rank NCCL group (11c). 11a: maxcut-10k at _bench_maxcut10k's settings
+# with plain ADMM and a fixed 100 iterations, held to the unsharded run at
+# the dryrun's float32 limits (__graft_entry__.py:101-110)
+MESH_RANKS = 2
+MAXCUT10K_MESH = dict(MAXCUT10K, accelerator=None, max_iter=100)
+MESH_RTOL, MESH_ATOL = 2e-4, 1e-5
+# 11c: the banded SDP for a fixed 200 iterations, within 1e-9 relative
+NCCL_ITERS = 200
+# the process groups' time limit: ranks that disagree fail the run
+MESH_TIMEOUT_S = 300
 SWEEPS = 8                      # Settings.jacobi_sweeps default
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): float32 and
 # float64 outside the tensor cores, and HBM3 bandwidth
@@ -291,10 +322,12 @@ def _kernels():
 
 
 # the maxcut path's kernel shapes (k = 8 at maxcut-2000's and maxcut-10k's
-# batch), checked beside the sweep
-MAXCUT_SHAPES = ((8, 1729), (8, 8540))
-# the shapes of the kernels line (the banded paths, maxcut-10k), timed
-TIMED_SHAPES = ((16, 2498), (8, 8540))
+# batch, and a rank's share of maxcut-10k's on phase 11's two ranks),
+# checked beside the sweep
+MAXCUT_SHAPES = ((8, 1729), (8, 8540), (8, 8540 // MESH_RANKS))
+# the shapes of the kernels line (the banded paths, maxcut-10k, a rank's
+# share of it), timed
+TIMED_SHAPES = ((16, 2498), (8, 8540), (8, 8540 // MESH_RANKS))
 
 
 def phase_kernel(device, ks=(4, 6, 8, 10, 12, 14, 16, 24, 32, 48),
@@ -421,7 +454,9 @@ def phase_decomposed(device, smi):
     """The decomposed banded SDP through the block-diagonal KKT in float64:
     one run with the default (round-robin) kernel, one with COSMO_TPU_PALLAS_RR
     set for that run only; each solves cold (a new model: decomposition,
-    analysis, copies) and then warm (the same model: every cache hits)."""
+    analysis, copies) and then warm (the same model: every cache hits).
+    Returns also, as ``x``, the first solve's x: phase 11b's unsharded
+    reference."""
     import cosmo_tpu_torch as pt
     from cosmo_tpu_torch import native, problems
 
@@ -429,8 +464,7 @@ def phase_decomposed(device, smi):
     data = problems.banded_sdp(10000, 8, seed=0, sparse=True)[:5]
     log(f"[decomposed] banded_sdp(10000, 8) generated in "
         f"{time.perf_counter() - t0:.2f} s")
-    settings = pt.Settings(decompose=True, accelerator=None, dtype=np.float64,
-                           eps_abs=1e-5, eps_rel=1e-5, max_iter=20000)
+    settings = pt.Settings(**BANDED_PLAIN)
     out = {}
     for kernel, env in (("jacobi_proj", None), ("jacobi_proj_rr", "1")):
         other = "jacobi_proj_rr" if kernel == "jacobi_proj" else "jacobi_proj"
@@ -466,6 +500,8 @@ def phase_decomposed(device, smi):
                     post_s=t.post_time, iter_per_s=ips, launches=counts[kernel],
                     projections=info["projections"], blocks=info["chordal_blocks"],
                     native=native.available())
+                if kernel == "jacobi_proj" and run == "cold":
+                    out["x"] = res.x
         finally:
             os.environ.pop("COSMO_TPU_PALLAS_RR", None)
     return out
@@ -785,28 +821,39 @@ def phase_cg(device, smi, seed):
             f"{(REF_PORTFOLIO - PORTFOLIO_OPT[1.0]) / abs(PORTFOLIO_OPT[1.0]):.2e} of the "
             f"optimum)")
 
-    # (c) the same problem in chunks of 100 iterations through the carry
+    # (c) the problem's first CHUNKED_ITERS iterations in chunks of CHUNK
+    # through the carry, against the same iterations in one call (the whole
+    # solve in chunks of earlier runs is cut to this depth for the run's
+    # time)
+    import torch
+
     dev = model._dev_cache
     m, n = model.model_size
     static, dyn = split_settings(model._resolved_settings, m, n, dev["qd"].dtype,
                                  refine_hint=refine_hint(sets), device=device)
+    dyn = dyn._replace(max_iter=torch.full_like(dyn.max_iter, CHUNKED_ITERS))
+    args = (dev["Pd"], dev["Ad"], dev["qd"], dev["bd"], dev["cones"], dev["x0"],
+            dev["s0"], dev["mu0"], dyn, static)
     t1 = time.perf_counter()
-    chunked = solver_mod.solve_chunked(dev["Pd"], dev["Ad"], dev["qd"], dev["bd"],
-                                       dev["cones"], dev["x0"], dev["s0"], dev["mu0"],
-                                       dyn, static, chunk=100)
+    straight = solver_mod.solve(*args)
+    straight_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    chunked = solver_mod.solve_chunked(*args, chunk=CHUNK)
     chunk_s = time.perf_counter() - t1
-    rel = abs(chunked["cost"] - cold.obj_val) / abs(cold.obj_val)
-    same = bool(np.array_equal(chunked["x"], cold.x))
+    rel = abs(chunked["cost"] - straight["cost"]) / abs(straight["cost"])
+    same = bool(np.array_equal(chunked["x"], straight["x"]))
     out["chunked"] = dict(status=chunked["status"], iter=chunked["iter"],
                           obj=chunked["cost"], rel_to_uninterrupted=rel, solve_s=chunk_s,
+                          uninterrupted_s=straight_s,
                           kkt_solver_iters=chunked["kkt_solver_iters"], x_bit_identical=same)
-    log(f"[cg] portfolio gamma=1 in chunks of 100: status {chunked['status']}, "
-        f"{chunked['iter']} iters (uninterrupted {cold.iter - cold.safeguarding_iter}), CG "
-        f"steps {chunked['kkt_solver_iters']} (uninterrupted "
-        f"{runs['gamma=1 cold']['kkt_solver_iters']}), obj {chunked['cost']:.12f}, rel "
-        f"{rel:.2e} of the uninterrupted (limit 1e-05), x bit-identical {same}, "
-        f"{chunk_s:.3f} s")
-    if chunked["status"] != 1 or not rel <= 1e-5:
+    log(f"[cg] portfolio gamma=1, its first {CHUNKED_ITERS} iterations in chunks of {CHUNK}: "
+        f"status {chunked['status']}, {chunked['iter']} iters (uninterrupted "
+        f"{straight['iter']}, status {straight['status']}), CG steps "
+        f"{chunked['kkt_solver_iters']} (uninterrupted {straight['kkt_solver_iters']}), obj "
+        f"{chunked['cost']:.12f}, rel {rel:.2e} of the uninterrupted (limit 1e-05), x "
+        f"bit-identical {same}, {chunk_s:.3f} s (uninterrupted {straight_s:.3f} s)")
+    if (chunked["status"] != straight["status"] or chunked["iter"] != straight["iter"]
+            or not rel <= 1e-5):
         raise AssertionError(f"chunked portfolio: {out['chunked']}")
 
     # the re-solve: update(q) and a warm start from the cold solution, (d)
@@ -1547,6 +1594,215 @@ def phase_backends(device, smi):
     return out
 
 
+def _digest(a) -> str:
+    """A hash of an array's bits (the ranks' results compared without
+    moving them)."""
+    import hashlib
+
+    a = np.ascontiguousarray(a)
+    return hashlib.sha1(a.view(np.uint8)).hexdigest() + f":{a.dtype}{a.shape}"
+
+
+def _mesh_solve(model, mesh, out_dir, label, rank, save):
+    """One counted ``optimize(mesh=)`` on this rank; its result's digests
+    and facts, and (``save``) x and s written to ``out_dir``."""
+    from cosmo_tpu_torch.ops import exp_pow_proj as K
+    from cosmo_tpu_torch.ops import jacobi_eig as JE
+    from cosmo_tpu_torch.ops import jacobi_proj as J
+    from cosmo_tpu_torch.ops import jacobi_proj_rr as R
+
+    J.psd_project_pallas.launches = R.psd_project_rr.launches = 0
+    K.project_exp.launches = K.project_pow.launches = 0
+    JE.reset_counts()
+    res = model.optimize(mesh=mesh)
+    counts = {"jacobi_proj": J.psd_project_pallas.launches,
+              "jacobi_proj_rr": R.psd_project_rr.launches,
+              "jacobi_eig": sum(JE.psd_project_amortized.launches.values())}
+    info, cones = model.last_solve, model._dev_cache["cones"]
+    if save:
+        for name in ("x", "s"):
+            np.save(os.path.join(out_dir, f"{label}_{name}.npy"), getattr(res, name))
+    return dict(
+        status=res.status, iter=res.iter, obj=res.obj_val, iter_s=info["iter_time"],
+        setup_s=res.times.setup_time, graph_s=res.times.graph_time,
+        projections=info["projections"], collectives=info["collectives"],
+        kkt_solver=info["kkt_solver"], counts=counts,
+        digests={a: _digest(getattr(res, a)) for a in ("x", "y", "s")},
+        buckets=[(b.batch, b.side, b.fastpath, b.backend or cones.eigh_backend,
+                  b.split is not None) for b in cones.psd_buckets])
+
+
+def _mesh_rank(rank, world, port, nccl_port, out_dir):
+    """Phase 11's rank body (spawned): 11a and 11b on the gloo group of
+    ``world`` ranks that share the card, then on rank 0 alone 11c on a
+    one-rank NCCL group. Writes its results to ``out_dir/rank<r>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    import cosmo_tpu_torch as pt
+    from cosmo_tpu_torch import problems
+    from cosmo_tpu_torch.parallel import make_mesh
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    timeout = datetime.timedelta(seconds=MESH_TIMEOUT_S)
+    out = {}
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=timeout)
+    mesh = make_mesh(world)
+    P, q, A, b, sets, _ = problems.maxcut(10000, 4.0 / 10000, seed=0, sparse=True)
+    model = pt.Model(pt.Settings(**MAXCUT10K_MESH)).set(P, q, A, b, sets)
+    out["maxcut"] = _mesh_solve(model, mesh, out_dir, "maxcut", rank, rank == 0)
+    del model, P, q, A, b, sets
+    banded = problems.banded_sdp(10000, 8, seed=0, sparse=True)[:5]
+    model = pt.Model(pt.Settings(**BANDED_PLAIN)).set(*banded)
+    out["banded"] = _mesh_solve(model, mesh, out_dir, "banded", rank, rank == 0)
+    dist.destroy_process_group()
+    if rank == 0:
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{nccl_port}",
+                                rank=0, world_size=1, timeout=timeout)
+        model = pt.Model(pt.Settings(**dict(BANDED_PLAIN, max_iter=NCCL_ITERS)))
+        out["nccl"] = _mesh_solve(model.set(*banded), make_mesh(1), out_dir, "nccl",
+                                  rank, True)
+        out["nccl"]["backend"] = dist.get_backend()
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        return s_.getsockname()[1]
+
+
+def phase_mesh(device, smi, banded_single, banded_x):
+    """Phase 11: ``Model.optimize(mesh=make_mesh())`` over torch.distributed.
+    Runs the unsharded references here, then spawns ``MESH_RANKS`` gloo
+    ranks on the card: (a) maxcut-10k at fixed work, x and s held to the
+    unsharded run, every rank's side-8 share through ``jacobi_proj``, the
+    [1, 896] colpad bucket matrix-row sharded; (b) the banded SDP Solved at
+    ``REF_BANDED``, x within 1e-6 of phase 5's unsharded solution
+    (``banded_x``), its iter/s beside phase 5's (``banded_single``); (c)
+    the same problem for ``NCCL_ITERS`` iterations on a one-rank NCCL
+    group, within 1e-9 relative of the unsharded run. Every rank's x, y and s have the
+    same bits. A rank that fails fails the run."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    import cosmo_tpu_torch as pt
+    from cosmo_tpu_torch import problems
+
+    # the unsharded references first, alone on the card
+    P, q, A, b, sets, _ = problems.maxcut(10000, 4.0 / 10000, seed=0, sparse=True)
+    maxcut_ref = pt.Model(pt.Settings(**MAXCUT10K_MESH), device=device).set(
+        P, q, A, b, sets).optimize()
+    del P, q, A, b, sets
+    banded = problems.banded_sdp(10000, 8, seed=0, sparse=True)[:5]
+    nccl_ref = pt.Model(pt.Settings(**dict(BANDED_PLAIN, max_iter=NCCL_ITERS)),
+                        device=device).set(*banded).optimize()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    ctx = mp.start_processes(_mesh_rank, args=(MESH_RANKS, _free_port(), _free_port(),
+                                               out_dir),
+                             nprocs=MESH_RANKS, join=False, start_method="spawn")
+    try:
+        deadline = time.monotonic() + 2 * MESH_TIMEOUT_S
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 11: the mesh ranks did not finish")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    def load(label, name):
+        return np.load(os.path.join(out_dir, f"{label}_{name}.npy"))
+
+    def rel_max(a, ref):
+        return float(np.max(np.abs(a - ref)) / max(np.max(np.abs(ref)), 1e-300))
+
+    out = {}
+    for case in ("maxcut", "banded"):
+        digests = [r_[case]["digests"] for r_ in ranks]
+        if any(d != digests[0] for d in digests):
+            raise AssertionError(f"mesh {case}: the ranks' x, y, s differ: {digests}")
+    # 11a: the north-star layout at full size, fixed work
+    mc = ranks[0]["maxcut"]
+    x_err = float(np.max(np.abs(load("maxcut", "x") - maxcut_ref.x)
+                         - MESH_RTOL * np.abs(maxcut_ref.x)))
+    s_err = float(np.max(np.abs(load("maxcut", "s") - maxcut_ref.s)
+                         - MESH_RTOL * np.abs(maxcut_ref.s)))
+    colpad = [bk for bk in mc["buckets"] if bk[1] == 896 and bk[2] == "colpad"]
+    kernel = [bk for bk in mc["buckets"] if bk[3] == "pallas"]
+    out["maxcut"] = dict(mc, x_excess=x_err, s_excess=s_err,
+                         single_iter=maxcut_ref.iter,
+                         collectives_per_iter=mc["collectives"] / max(mc["iter"], 1),
+                         iter_per_s=mc["iter"] / mc["iter_s"],
+                         ranks=[r_["maxcut"]["counts"] for r_ in ranks])
+    log(f"[mesh] 11a maxcut-10000 float32 on {MESH_RANKS} gloo ranks sharing the card, "
+        f"plain ADMM, {mc['iter']} iters (unsharded {maxcut_ref.iter}): x and s within "
+        f"rtol {MESH_RTOL:.0e} + atol (excess over rtol: x {x_err:.2e}, s {s_err:.2e}; "
+        f"limit {MESH_ATOL:.0e}); graph {mc['graph_s']:.2f} s, setup "
+        f"{mc['setup_s']:.2f} s, solve {mc['iter_s']:.2f} s, "
+        f"{out['maxcut']['iter_per_s']:.2f} iter/s, x digest {mc['digests']['x']}, "
+        f"collectives an iteration "
+        f"{out['maxcut']['collectives_per_iter']:.2f}; rank 0's PSD buckets (B, side, "
+        f"layout, backend, matrix-row split) {mc['buckets']}; launches by rank "
+        f"{out['maxcut']['ranks']} / projections {mc['projections']} [{smi}]")
+    if not (x_err <= MESH_ATOL and s_err <= MESH_ATOL and mc["iter"] == maxcut_ref.iter):
+        raise AssertionError(f"mesh maxcut: {out['maxcut']}")
+    if not (colpad and all(bk[4] for bk in colpad) and len(kernel) == 1
+            and kernel[0][:2] == [8540 // MESH_RANKS, 8] and not kernel[0][4]):
+        raise AssertionError(f"mesh maxcut left its layout: {mc['buckets']}")
+    for r_ in ranks:
+        c = r_["maxcut"]["counts"]
+        if not (c["jacobi_proj"] == r_["maxcut"]["projections"] > 0
+                and c["jacobi_proj_rr"] == 0):
+            raise AssertionError(f"mesh maxcut: launches {c} for "
+                                 f"{r_['maxcut']['projections']} projections")
+    # 11b: a full solve on the ranks
+    bd = ranks[0]["banded"]
+    err = abs(bd["obj"] - REF_BANDED) / abs(REF_BANDED)
+    x_diff = float(np.max(np.abs(load("banded", "x") - banded_x)))
+    ips = bd["iter"] / bd["iter_s"]
+    out["banded"] = dict(bd, rel_err=err, x_diff=x_diff, iter_per_s=ips,
+                         collectives_per_iter=bd["collectives"] / max(bd["iter"], 1),
+                         phase5_iter=banded_single["iter"],
+                         phase5_iter_per_s=banded_single["iter_per_s"])
+    log(f"[mesh] 11b banded_sdp(10000, 8) float64 on {MESH_RANKS} gloo ranks: "
+        f"{bd['status']}, {bd['iter']} iters, obj {bd['obj']:.12f} (rel err {err:.2e}, "
+        f"limit 1e-06), x within {x_diff:.2e} of phase 5's unsharded solution (limit "
+        f"1e-06); solve {bd['iter_s']:.2f} s, {ips:.1f} iter/s against "
+        f"phase 5's {banded_single['iter']} iters at {banded_single['iter_per_s']:.1f} "
+        f"iter/s; collectives an iteration {out['banded']['collectives_per_iter']:.2f}; "
+        f"launches by rank {[r_['banded']['counts'] for r_ in ranks]} / projections "
+        f"{bd['projections']} [{smi}]")
+    if bd["status"] != "Solved" or not err <= 1e-6 or not x_diff <= 1e-6:
+        raise AssertionError(f"mesh banded: {out['banded']}")
+    if bd["kkt_solver"] != "blockdiag" or any(
+            r_["banded"]["counts"]["jacobi_proj"] != bd["projections"] for r_ in ranks):
+        raise AssertionError(f"mesh banded left its path: {out['banded']}")
+    # 11c: NCCL
+    nc = ranks[0]["nccl"]
+    rel = rel_max(load("nccl", "x"), nccl_ref.x)
+    out["nccl"] = dict(nc, x_rel=rel, single_iter=nccl_ref.iter,
+                       collectives_per_iter=nc["collectives"] / max(nc["iter"], 1))
+    log(f"[mesh] 11c banded on a one-rank {nc['backend']} group, {nc['iter']} iters "
+        f"(unsharded {nccl_ref.iter}): x within {rel:.2e} relative (limit 1e-09), "
+        f"collectives an iteration {out['nccl']['collectives_per_iter']:.2f}, "
+        f"{nc['iter'] / nc['iter_s']:.1f} iter/s [{smi}]")
+    if nc["backend"] != "nccl" or nc["iter"] != nccl_ref.iter or not rel <= 1e-9:
+        raise AssertionError(f"mesh nccl: {out['nccl']}")
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="directory for chip_smoke.json")
@@ -1582,15 +1838,19 @@ def main(argv=None):
     cg = timed("cg", lambda: phase_cg(device, smi, args.seed))
     cones = timed("cones", lambda: phase_cones(device, smi, args.seed))
     backends = timed("backends", lambda: phase_backends(device, smi))
+    banded_x = decomposed.pop("x")
+    mesh = timed("mesh", lambda: phase_mesh(device, smi, decomposed["jacobi_proj_cold"],
+                                            banded_x))
     seconds["total"] = time.perf_counter() - t0
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
 
     # each kernel at the shape of its path, with that path's launches:
     # jacobi_proj on the banded default path (B = 2498, k = 16, float32,
-    # phase 6), on the maxcut-10k path (B = 8540, k = 8, float32, phase 7)
-    # and on the banded-CG path (B = 2498, k = 16, float32, phase 8a),
+    # phase 6), on the maxcut-10k path (B = 8540, k = 8, float32, phase 7),
+    # on the banded-CG path (B = 2498, k = 16, float32, phase 8a) and on a
+    # mesh rank's share of maxcut-10k (B = 4270, k = 8, float32, phase 11a),
     # jacobi_proj_rr under COSMO_TPU_PALLAS_RR (B = 2498, k = 16, float64,
-    # phase 5's warm solve)
+    # phase 5)
     kernels = []
     for name, replaces, dtype_name, B, k, path, launches in (
             ("jacobi_proj", "cosmo_tpu/ops/pallas_eigh.py:132", "float32", 2498, 16,
@@ -1600,7 +1860,10 @@ def main(argv=None):
             ("jacobi_proj", "cosmo_tpu/ops/pallas_eigh.py:132", "float32", 2498, 16,
              "banded_cg", cg["banded_cg"]["launches"]),
             ("jacobi_proj_rr", "cosmo_tpu/ops/pallas_eigh.py:69", "float64", 2498, 16,
-             "banded", decomposed["jacobi_proj_rr_warm"]["launches"])):
+             "banded", decomposed["jacobi_proj_rr_cold"]["launches"]),
+            ("jacobi_proj", "cosmo_tpu/ops/pallas_eigh.py:132", "float32",
+             8540 // MESH_RANKS, 8, f"mesh maxcut-10000, rank 0 of {MESH_RANKS}",
+             mesh["maxcut"]["counts"]["jacobi_proj"])):
         row = next(r for r in kernel_rows if r["kernel"] == name
                    and r["dtype"] == dtype_name and r.get("k") == k and r.get("B") == B)
         kernels.append(dict(
@@ -1659,7 +1922,7 @@ def main(argv=None):
                            seconds=seconds, kernel=kernel_rows, slice=slice_out,
                            known=known, plugins=plugins, decomposed=decomposed,
                            default=default, maxcut=maxcut, cg=cg, cones=cones,
-                           backends=backends, kernels=kernels),
+                           backends=backends, mesh=mesh, kernels=kernels),
                       f, indent=1, default=str)
     log(smi)
     log(json.dumps({"kernels": kernels}))

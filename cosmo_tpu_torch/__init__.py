@@ -24,9 +24,13 @@ eigenbasis across iterations (``ops/jacobi_eig.py``,
 JAX package have their port in :mod:`.examples`
 (``python -m cosmo_tpu_torch.examples.lp [--device cpu]``).
 
+A solve runs SPMD over ``torch.distributed`` through a device mesh
+(:mod:`.parallel`: ``Model.optimize(mesh=make_mesh())`` on every rank of a
+gloo or NCCL group).
+
 This package imports neither JAX nor ``cosmo_tpu``. What it does not port
-yet (a device mesh; on a CUDA device the amortized backend above side 48)
-raises ``NotImplementedError`` naming the ROADMAP.md item that will.
+yet (on a CUDA device the amortized backend above side 48) raises
+``NotImplementedError`` naming the ROADMAP.md item that will.
 """
 from .models.cones import (
     Box,

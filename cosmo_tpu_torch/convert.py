@@ -88,8 +88,8 @@ def chordal_info_from_dict(d: dict) -> transform.ChordalInfo:
 
 def blockkkt_meta_from_dict(d: dict, device) -> blockkkt.BlockKKTMeta:
     """A ``cosmo_tpu.ops.blockkkt.BlockKKTMeta`` as a dict -> this
-    package's BlockKKTMeta on ``device``. Its mesh ``spec`` is dropped:
-    this package has no mesh yet."""
+    package's BlockKKTMeta on ``device``, unsharded: its mesh ``spec`` is
+    dropped (``parallel.shard_blockkkt`` shards a meta)."""
     buckets = tuple(blockkkt.BlockBucket(**_pick(blockkkt.BlockBucket, b))
                     for b in d["buckets"])
     return blockkkt.meta_to_device(

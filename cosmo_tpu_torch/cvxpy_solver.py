@@ -79,8 +79,8 @@ def solve_conic_data(data: Dict[str, Any], settings=None, warm_start=None,
     """Solve CVXPY-canonicalized conic data (the ``data`` dict of
     ``apply()``: "A", "b", "c", "dims") on ``device`` (None: cuda) and
     return an SCS-3-style result dict. Usable without cvxpy for SCS-format
-    problems. ``mesh`` is passed to ``Model.optimize`` (not ported: it
-    raises unless None)."""
+    problems. ``mesh``: a mesh of ``parallel.make_mesh``, passed to
+    ``Model.optimize`` (every rank of it calls this with the same data)."""
     import scipy.sparse as sp
 
     from .models.model import Model, cone_sets_from_dict

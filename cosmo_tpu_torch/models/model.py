@@ -24,6 +24,14 @@ moves only the vectors whose version changed. On a CUDA device the
 structure's cache also keeps the scaling's CUDA graph
 (``ops/scaling.RuizGraph``): the first solve captures it, a re-solve
 replays it. ``set``/``assemble`` drop everything.
+
+``optimize(mesh=make_mesh())`` solves SPMD over ``torch.distributed``
+(``cosmo_tpu_torch.parallel``): every rank of the group calls it on the
+same model and gets the same result. The mesh's size pads the
+decomposition's block counts (``chordal.decompose(pad_batch=)``) and keys
+both caches; the operators, cones and block KKT are sharded by rank
+(``parallel/mesh.py``); the block-dense A layout and the CUDA graphs are
+off there.
 """
 from __future__ import annotations
 
@@ -41,7 +49,6 @@ from ..ops import blockkkt, conedata, jacobi_proj
 from ..ops import kkt as kkt_ops
 from ..ops import linops
 from ..ops import scaling as scaling_ops
-from ..ops.conedata import not_ported
 from ..settings import (KKT_BLOCK, KKT_CG, KKT_DENSE, KKT_MINRES, Settings,
                         split_settings, torch_dtype)
 from ..utils import printing
@@ -258,9 +265,23 @@ class Model:
         return self
 
     # -- solve -----------------------------------------------------------
-    def _check_supported(self, settings: Settings, mesh):
-        if mesh is not None:
-            raise not_ported("optimize(mesh=...)", "mesh")
+    def _enter_mesh(self, mesh):
+        """This rank's Shard of ``mesh`` (None without one); the model's
+        device becomes the rank's mesh device. Raises TypeError for an
+        object that is not a mesh of ``parallel.make_mesh``."""
+        if mesh is None:
+            return None
+        from ..parallel import mesh as mesh_mod
+
+        if not mesh_mod.is_mesh(mesh):
+            raise TypeError(f"mesh must be a DeviceMesh of "
+                            f"cosmo_tpu_torch.parallel.make_mesh, not {type(mesh).__name__}")
+        device = mesh_mod.mesh_device(mesh)
+        if device.type != self.device.type:
+            raise ValueError(f"a Model on {self.device.type} cannot solve over a "
+                             f"{device.type} mesh")
+        self.device = device
+        return mesh_mod.mesh_shard(mesh)
 
     def _device_operators(self, P, A, sets, use_sparse, kkt_block, settings, dtype):
         """(P, A) on the device: dense tensors; a dense P and a block-dense
@@ -285,11 +306,13 @@ class Model:
             linops.coo_from_scipy(sp.csr_matrix(M), np_dtype), self.device, dtype)
             for M in (P, A))
 
-    def _decompose(self, settings):
+    def _decompose(self, settings, n_dev: int = 1):
         """(P, q, A, b, sets, chordal_info) of the problem to solve: the
         decomposed one when a decomposable PSD cone decomposes. The
         decomposition is cached by ``decomp_key``; a hit re-derives only q
-        and b (reference: the States caching flags, types.jl:330-337)."""
+        and b (reference: the States caching flags, types.jl:330-337).
+        ``n_dev``: the mesh's rank count, to which the compact transform
+        pads its block counts."""
         P, q, A, b, sets = self.P, self.q, self.A, self.b, self.sets
         if not settings.decompose or not any(
             isinstance(s, (C.PsdCone, C.PsdConeTriangle))
@@ -297,9 +320,9 @@ class Model:
         ):
             return P, q, A, b, sets, None
         decomp_key = (settings.merge_strategy, settings.compact_transformation,
-                      settings.psd_pad_to, settings.colpad_min)
+                      settings.psd_pad_to, settings.colpad_min, n_dev)
         if self._chordal_info is None or self._decomp_key != decomp_key:
-            info = chordal.decompose(P, q, A, b, sets, settings)
+            info = chordal.decompose(P, q, A, b, sets, settings, pad_batch=n_dev)
             if info is None:
                 return P, q, A, b, sets, None
             self._chordal_info, self._decomp_key = info, decomp_key
@@ -308,12 +331,13 @@ class Model:
         P, _, A, _, sets = info.problem
         return P, q, A, b, sets, info
 
-    def _device_problem(self, settings, dtype, P, A, sets, chordal_info):
+    def _device_problem(self, settings, dtype, P, A, sets, chordal_info, mesh=None):
         """The device copies of the solve's structure, cached by
         ``struct_key``: dict with use_sparse, cones, kkt_block (device meta
-        or None), Pd, Ad, rho_row_scale and, on a CUDA device, the scaling
-        graph that the re-solves replay; :meth:`_device_vectors` adds the
-        vectors."""
+        or None), Pd, Ad, rho_row_scale and, on a CUDA device without a
+        mesh, the scaling graph that the re-solves replay;
+        :meth:`_device_vectors` adds the vectors. Under ``mesh`` they are
+        this rank's shards (``parallel.shard_problem``)."""
         use_sparse = settings.sparse is True or (
             settings.sparse == "auto" and (sp.issparse(A) or sp.issparse(P)))
         struct_key = (
@@ -321,7 +345,7 @@ class Model:
             int(settings.psd_pad_to), settings.eigh_backend,
             int(settings.jacobi_sweeps), settings.accelerator is not None,
             settings.kkt_solver, int(settings.kkt_block_max),
-            float(settings.rho_overlap_scale),
+            float(settings.rho_overlap_scale), None if mesh is None else id(mesh),
         )
         cache = self._dev_cache
         if cache is not None and cache["struct_key"] == struct_key:
@@ -347,25 +371,41 @@ class Model:
                     sp.csr_matrix(P), sp.csr_matrix(A),
                     max_block=int(settings.kkt_block_max)))
             kkt_block = self._blockkkt_cache[1]
-        Pd, Ad = self._device_operators(P, A, sets, use_sparse, kkt_block,
-                                        settings, dtype)
+        if mesh is None:
+            Pd, Ad = self._device_operators(P, A, sets, use_sparse, kkt_block,
+                                            settings, dtype)
+            cones = conedata.to_device(cones, self.device, dtype)
+            if kkt_block is not None:
+                kkt_block = blockkkt.meta_to_device(kkt_block, self.device)
+        else:
+            from .. import parallel
+
+            # the block-dense A is single-process only: the mesh keeps Coo
+            if use_sparse:
+                P, A = (linops.coo_from_scipy(sp.csr_matrix(M), np_dtype) for M in (P, A))
+            if kkt_block is not None:
+                # the pair lists are remapped against the unsharded layout
+                kkt_block = parallel.shard_blockkkt(mesh, kkt_block, A)
+            m, n = A.shape
+            Pd, Ad, _, _, cones = parallel.shard_problem(
+                mesh, P if use_sparse else _to_dense(P), A if use_sparse else _to_dense(A),
+                np.zeros(n), np.zeros(m), cones, dtype)
         self._dev_cache = dict(
-            struct_key=struct_key, use_sparse=bool(use_sparse),
-            cones=conedata.to_device(cones, self.device, dtype),
-            kkt_block=(None if kkt_block is None
-                       else blockkkt.meta_to_device(kkt_block, self.device)),
-            Pd=Pd, Ad=Ad, kkt_precond=None,
-            scale_graph=(scaling_ops.RuizGraph() if self.device.type == "cuda"
-                         else None),
+            struct_key=struct_key, use_sparse=bool(use_sparse), cones=cones,
+            kkt_block=kkt_block, Pd=Pd, Ad=Ad, kkt_precond=None,
+            mesh=mesh,      # held, so that the key's id(mesh) stays its own
+            scale_graph=(scaling_ops.RuizGraph()
+                         if self.device.type == "cuda" and mesh is None else None),
             rho_row_scale=_rho_row_scale(settings, chordal_info, sets, A.shape[0],
                                          dtype, self.device),
             qb_version=None, ws_version=None,
         )
         return self._dev_cache
 
-    def _device_vectors(self, dev, dtype, q, b, chordal_info):
+    def _device_vectors(self, dev, dtype, q, b, chordal_info, mesh=None):
         """Move q/b and the starting vectors to the device when their version
-        changed since the cached copies (into ``dev``)."""
+        changed since the cached copies (into ``dev``); replicated under a
+        mesh (``parallel.shard_vectors``)."""
         def vec(v):
             return torch.as_tensor(v, dtype=dtype, device=self.device)
 
@@ -376,35 +416,45 @@ class Model:
             # the decomposed space (reference: interface.jl:117-179)
             starts = (self.x0, self.s0, self.mu0) if chordal_info is None else (
                 chordal_info.map_warm_start(self.x0, self.s0, self.mu0))
-            dev.update(zip(("x0", "s0", "mu0"), map(vec, starts)),
-                       ws_version=self._ws_version)
+            if mesh is None:
+                starts = map(vec, starts)
+            else:
+                from .. import parallel
+
+                starts = parallel.shard_vectors(mesh, *starts, dtype=dtype)
+            dev.update(zip(("x0", "s0", "mu0"), starts), ws_version=self._ws_version)
 
     def optimize(self, mesh=None, on_iter=None) -> results_mod.Result:
-        """Solve the assembled problem on the model's device. ``on_iter``:
-        the solver's profiling hook (``solver.solve``)."""
+        """Solve the assembled problem on the model's device. ``mesh``: a
+        mesh of :func:`cosmo_tpu_torch.parallel.make_mesh`; every rank of it
+        calls ``optimize`` on the same model, solves on its mesh device and
+        returns the same result. ``on_iter``: the solver's profiling hook
+        (``solver.solve``)."""
         if not self.is_assembled:
             raise RuntimeError(
                 "The model has to be assembled/set before optimize() can be called."
             )
+        shard = self._enter_mesh(mesh)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Model(device=None) solves on CUDA, which is not "
                                "available; pass device='cpu' to solve on the CPU")
         settings = self.settings
-        self._check_supported(settings, mesh)
         times = results_mod.ResultTimes()
         t_solver = time.perf_counter()
+        calls0 = 0 if shard is None else shard.calls
 
         # ---- chordal decomposition (host, reference: chordal_decomposition.jl)
         t_graph = time.perf_counter()
-        P, q, A, b, sets, chordal_info = self._decompose(settings)
+        P, q, A, b, sets, chordal_info = self._decompose(
+            settings, 1 if shard is None else shard.size)
         self.is_decomposed = chordal_info is not None
         times.graph_time = time.perf_counter() - t_graph
 
         t_setup = time.perf_counter()
         dtype = _default_dtype(settings, self.device)
         m, n = A.shape
-        dev = self._device_problem(settings, dtype, P, A, sets, chordal_info)
-        self._device_vectors(dev, dtype, q, b, chordal_info)
+        dev = self._device_problem(settings, dtype, P, A, sets, chordal_info, mesh)
+        self._device_vectors(dev, dtype, q, b, chordal_info, mesh)
         cones, kkt_block = dev["cones"], dev["kkt_block"]
         if kkt_block is not None:
             settings = settings.replace(kkt_solver=KKT_BLOCK)
@@ -421,7 +471,8 @@ class Model:
             if dev["kkt_precond"] is None:
                 dev["kkt_precond"] = kkt_ops.make_overlap_precond(
                     chordal_info.n_orig, chordal_info.ov_child_rows,
-                    chordal_info.ov_parent_rows, self.device)
+                    chordal_info.ov_parent_rows, self.device,
+                    fixed_order=shard is not None)
             kkt_precond = dev["kkt_precond"]
         if settings.adaptive_rho_tolerance <= 0:
             # auto rho deadband: tight where the refactor is a cheap batched
@@ -479,6 +530,8 @@ class Model:
             syncs=out["syncs"], refine_syncs=out["refine_syncs"],
             kkt_solver_iters=out["kkt_solver_iters"], kkt_reads=out["kkt_reads"],
             auto_rho_interval=self.auto_rho_interval,
+            mesh_ranks=1 if shard is None else shard.size,
+            collectives=None if shard is None else shard.calls - calls0,
         )
 
         status = results_mod.STATUS_NAMES[int(out["status"])]
@@ -543,6 +596,10 @@ class Model:
         ct = max(int(settings.check_termination), 1)
         iv = settings.adaptive_rho_fraction * setup_s / max(per_iter, 1e-9)
         iv = min(max(int(round(iv / ct)) * ct, ct), int(settings.max_iter))
+        shard = args[4].shard
+        if shard is not None:
+            # the ranks' clocks differ: rank 0's interval holds
+            iv = int(shard.broadcast(torch.tensor([iv], device=self.device))[0])
         self.auto_rho_interval = iv
         dyn = dyn._replace(adaptive_rho_interval=torch.full_like(
             dyn.adaptive_rho_interval, iv))
@@ -595,7 +652,10 @@ class Model:
                                                     steps)
                 else:
                     # as the solve runs it: CUDA graph replays on the card
-                    graph = kkt_ops.CGGraph() if self.device.type == "cuda" else None
+                    # (eager under a mesh)
+                    graph = (kkt_ops.CGGraph()
+                             if self.device.type == "cuda" and cones.shard is None
+                             else None)
 
                     def solve():
                         return kkt_ops.cg_solve(Pd, Ad, sigma, rho_vec, r1, bd, x0, tol,

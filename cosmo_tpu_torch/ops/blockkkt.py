@@ -28,6 +28,13 @@ batched dense algebra over thousands of k <= 64 blocks:
 There is no hand-written kernel here: the batched Cholesky, triangular
 solves and einsums are PyTorch's, the compensated arithmetic is elementwise
 (ops/df32.py).
+
+Under a device mesh (``cosmo_tpu_torch.parallel.shard_blockkkt``) each
+bucket's components are split over the ranks: a rank holds the pair lists
+of its own components only, assembles, factors and applies those, and one
+sum reassembles x. The block-dense A and the
+block-space x carry are dropped (:func:`supports_blockspace`), as in the
+reference (``cosmo_tpu.ops.blockkkt:349, :545-555``).
 """
 from __future__ import annotations
 
@@ -38,7 +45,8 @@ import numpy as np
 import torch
 
 from . import df32
-from .linops import matvec, rmatvec, to_device
+from .linops import _segment_sum, full_vals, matvec, rmatvec, to_device
+from .shard import reduce_sum
 
 # padded component-size ladder (one batched shape per bucket)
 _LADDER = (1, 2, 4, 8, 16, 32, 64)
@@ -53,7 +61,8 @@ class BlockBucket:
 
     k: int                  # padded block side
     N: int                  # number of components in the bucket
-    cols: Any = None        # int [N, k] member columns (pad = n)
+    cols: Any = None        # int [N, k] member columns (pad = n); under a
+    #                         mesh N and every list are the rank's own
     a_rows: Any = None      # int [nA] row of each A-pair (rho gather)
     a_pi: Any = None        # int [nA] row-sorted nnz index of entry a
     a_pj: Any = None        # int [nA] row-sorted nnz index of entry b
@@ -80,6 +89,7 @@ class BlockKKTMeta:
 
     n: int
     buckets: Tuple[BlockBucket, ...] = ()
+    shard: Any = None       # the rank's Shard under a device mesh
 
 
 def _canonical_coo(X):
@@ -92,6 +102,18 @@ def _canonical_coo(X):
     c = np.asarray(Xc.col, dtype=np.int64)
     p = np.lexsort((c, r))
     return r[p], c[p]
+
+
+def target_stream(a_tgt, p_tgt) -> dict:
+    """The ``m_*`` fields of a :class:`BlockBucket`: the concatenated
+    (A-pair, P-entry) targets sorted, with their segment pointers."""
+    all_tgt = np.concatenate([a_tgt, p_tgt])
+    m_perm = np.argsort(all_tgt, kind="stable")
+    m_uniq, m_counts = np.unique(all_tgt[m_perm], return_counts=True)
+    m_ptr = np.zeros(m_uniq.size + 1, np.int64)
+    np.cumsum(m_counts, out=m_ptr[1:])
+    return dict(m_width=int(m_counts.max()) if m_counts.size else 0,
+                m_perm=m_perm, m_ptr=m_ptr, m_uniq=m_uniq)
 
 
 def analyze(P, A, max_block: int = 64) -> BlockKKTMeta | None:
@@ -209,18 +231,10 @@ def analyze(P, A, max_block: int = 64) -> BlockKKTMeta | None:
             av_idx = np.zeros(0, np.int64)
             av_tgt = np.zeros(0, np.int64)
 
-        all_tgt = np.concatenate([tgt, ptgt])
-        m_perm = np.argsort(all_tgt, kind="stable")
-        m_uniq, m_counts = np.unique(all_tgt[m_perm], return_counts=True)
-        m_ptr = np.zeros(m_uniq.size + 1, np.int64)
-        np.cumsum(m_counts, out=m_ptr[1:])
-
         buckets.append(BlockBucket(
             k=k, N=N, cols=cols_b,
             a_rows=a_row[amask], a_pi=a_pi[amask], a_pj=a_pj[amask], a_tgt=tgt,
-            p_idx=np.nonzero(pmask)[0], p_tgt=ptgt,
-            m_width=int(m_counts.max()) if m_counts.size else 0,
-            m_perm=m_perm, m_ptr=m_ptr, m_uniq=m_uniq,
+            p_idx=np.nonzero(pmask)[0], p_tgt=ptgt, **target_stream(tgt, ptgt),
             R=R, row_ids=row_ids, av_idx=av_idx, av_tgt=av_tgt,
         ))
     return BlockKKTMeta(n=int(n), buckets=tuple(buckets))
@@ -245,7 +259,8 @@ def _ext0(v):
     return torch.cat([v, v.new_zeros(1)])
 
 
-def factor(meta: BlockKKTMeta, P, A, sigma, rho_vec, build_pair: bool = False):
+def factor(meta: BlockKKTMeta, P, A, sigma, rho_vec, build_pair: bool = False,
+           a_vals=None):
     """Assemble the component blocks of M and cache their inverses — the
     analog of the reference's ``update_rho!`` refactorization
     (kktsolver.jl:118-124). ``P`` and ``A`` are :class:`~.linops.Coo`.
@@ -257,8 +272,16 @@ def factor(meta: BlockKKTMeta, P, A, sigma, rho_vec, build_pair: bool = False):
     sum), so Mh + Ml is M to ~eps^2 — the state is then ``(Minv, Mh, Ml,
     Ad, rhog)``. A block without a Cholesky factor gets a NaN inverse, as
     JAX's ``cholesky`` gives, so the solve ends Unsolved instead of raising.
+
+    Under a mesh each bucket holds the rank's own components and their pair
+    lists (``parallel.shard_blockkkt``), which index A's row-sorted values
+    in full: ``a_vals``, :func:`~.linops.full_vals` of ``A``, which a solve
+    gathers once for all its factorizations (gathered here when not given).
+    The blocks are then summed in a fixed order (``linops._segment_sum``).
     """
     dtype = A.vals.dtype
+    vals = full_vals(A) if a_vals is None else a_vals
+    fixed = meta.shard is not None
     states = []
     for b in meta.buckets:
         # sigma on real diagonals; 1 on padded slots so the factorization
@@ -267,15 +290,15 @@ def factor(meta: BlockKKTMeta, P, A, sigma, rho_vec, build_pair: bool = False):
                                                            device=b.cols.device),
                                sigma)
         if build_pair:
-            a_hi, a_e = df32.two_prod(A.vals[b.a_pi], A.vals[b.a_pj])
+            a_hi, a_e = df32.two_prod(vals[b.a_pi], vals[b.a_pj])
             rho_g = rho_vec[b.a_rows]
             m_hi, m_e1 = df32.two_prod(a_hi, rho_g)
             m_e = m_e1 + a_e * rho_g
             stream_h = torch.cat([m_hi, P.vals[b.p_idx]])[b.m_perm]
             stream_e = torch.cat([m_e, m_e.new_zeros(b.p_idx.numel())])[b.m_perm]
             hi, lo = df32._segment_sum_df32(stream_h, stream_e, b.m_ptr, b.m_width)
-            Mh = A.vals.new_zeros(b.N * b.k * b.k)
-            Ml = A.vals.new_zeros(b.N * b.k * b.k)
+            Mh = vals.new_zeros(b.N * b.k * b.k)
+            Ml = vals.new_zeros(b.N * b.k * b.k)
             Mh[b.m_uniq] = hi
             Ml[b.m_uniq] = lo
             Mh = Mh.reshape(b.N, b.k, b.k)
@@ -286,12 +309,9 @@ def factor(meta: BlockKKTMeta, P, A, sigma, rho_vec, build_pair: bool = False):
             Ml[:, ar, ar] += de
             M = Mh
         else:
-            Mflat = A.vals.new_zeros(b.N * b.k * b.k)
-            if b.p_idx.numel():
-                Mflat.index_add_(0, b.p_tgt, P.vals[b.p_idx])
-            if b.a_pi.numel():
-                Mflat.index_add_(0, b.a_tgt,
-                                 A.vals[b.a_pi] * A.vals[b.a_pj] * rho_vec[b.a_rows])
+            Mflat = _segment_sum(
+                torch.cat([P.vals[b.p_idx], vals[b.a_pi] * vals[b.a_pj] * rho_vec[b.a_rows]]),
+                torch.cat([b.p_tgt, b.a_tgt]), b.N * b.k * b.k, fixed)
             M = Mflat.reshape(b.N, b.k, b.k) + torch.diag_embed(diag_add)
         L, info = torch.linalg.cholesky_ex(M)
         L = torch.where((info == 0)[:, None, None], L, torch.full_like(L, float("nan")))
@@ -316,13 +336,13 @@ def _has_pair(state) -> bool:
 
 
 def _apply(meta: BlockKKTMeta, state, t):
-    """M^-1 t through the cached block inverses."""
+    """M^-1 t through the cached block inverses (reassembled over a mesh)."""
     tp = _ext0(t)
     out = t.new_zeros(meta.n + 1)
     for b, st in zip(meta.buckets, state):
         xb = torch.einsum("nij,nj->ni", st[0], tp[b.cols])
         out[b.cols.reshape(-1)] = xb.reshape(-1)
-    return out[:-1]
+    return reduce_sum(meta.shard, out[:-1])
 
 
 def _block_matvec(meta: BlockKKTMeta, state, x, m: int):
@@ -356,7 +376,7 @@ def _matvec_pair(meta: BlockKKTMeta, state, x_pair):
         flat = b.cols.reshape(-1)
         outh[flat] = hi.reshape(-1)
         outl[flat] = lo.reshape(-1)
-    return outh[:-1], outl[:-1]
+    return df32.reduce_pair(meta.shard, outh[:-1], outl[:-1])
 
 
 def _pair_block_matvec(Mh, Ml, xh, xl):
@@ -444,8 +464,9 @@ def _solve_fused_refined(meta: BlockKKTMeta, state, rho_vec, r1, r2,
 
 def supports_blockspace(meta) -> bool:
     """True when every bucket carries the block-dense A — the precondition
-    of the block-space x carry (:func:`solve_blockspace`)."""
-    return (meta is not None and len(meta.buckets) > 0
+    of the block-space x carry (:func:`solve_blockspace`); never under a
+    mesh."""
+    return (meta is not None and meta.shard is None and len(meta.buckets) > 0
             and all(b.row_ids is not None for b in meta.buckets))
 
 

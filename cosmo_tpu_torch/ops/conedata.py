@@ -106,7 +106,11 @@ class PsdBucket:
     diagonal, so that ``U + U^T`` of the scaled stack is the symmetric
     matrix in two operations (halving and doubling are exact).
     ``backend``: per-bucket projection backend override ("" = the
-    ConeData-wide one).
+    ConeData-wide one). ``split``: under a device mesh, the rank's
+    :class:`~.shard.Shard` for a bucket of fewer blocks than ranks (the
+    counterpart of the reference's ``spec``): its batch is replicated and
+    the polar's products are split over the matrix rows
+    (``cosmo_tpu_torch.parallel.shard_cones``).
     """
 
     gather_idx: Any
@@ -129,6 +133,7 @@ class PsdBucket:
     cp_csc: Any = None         # [r0, r0] compress mask*scale   (colpad)
     sh_idx: Any = None         # int [r0, r0] shear gather index (shear)
     sym_scale: Any = None      # [r0, r0] sh_scale, diagonal 1/2 (shear, colpad)
+    split: Any = None
 
     @property
     def batch(self) -> int:
@@ -181,6 +186,11 @@ class ConeData:
     # user-defined cones: ((offset, CustomCone), ...); their functions take
     # and return tensors on the solve's device
     custom: Tuple = ()
+    # under a device mesh (cosmo_tpu_torch.parallel.shard_cones): the rank's
+    # Shard, with the stacks holding this rank's slices, and the
+    # Zero/Nonnegatives/Box rows whose clip this rank writes
+    shard: Any = None
+    own_rows: Any = None      # bool [m]
 
 
 def _fields_to_device(obj, device, dtype):

@@ -21,7 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from .linops import Bde, Coo, _ext0
+from .linops import Bde, Coo, RowShard, _ext0
+from .shard import reduce_sum
 
 # Dekker splitting constants: 2^12 + 1 for binary32 (24-bit significand),
 # 2^27 + 1 for binary64 (the same code path then stays exact in float64)
@@ -126,14 +127,30 @@ def _segment_sum_df32(p, e, ptr, width: int):
     return _pairwise_sum(pe, ee, 1)
 
 
+def reduce_pair(shard, hi, lo):
+    """A pair of partial outputs summed over ``shard``, in one collective.
+    Exact where each entry comes from one rank (a sharded ``Coo``, the rows
+    of a row-sharded A); the row-sharded A'y is a genuine sum of its
+    ranks' pairs, as the reference's psum is."""
+    if shard is None:
+        return hi, lo
+    both = reduce_sum(shard, torch.stack([hi, lo]))
+    return both[0], both[1]
+
+
 def matvec2(A, x_pair):
-    """Compensated A @ x for a dense, Coo or Bde A and a (hi, lo) input
-    pair. Returns (hi, lo)."""
+    """Compensated A @ x for a dense, Coo, Bde or row-sharded A and a (hi,
+    lo) input pair. Returns (hi, lo)."""
     xh, xl = x_pair
     if isinstance(A, Coo):
         p, e = two_prod(A.vals, xh[A.cols])
         e = e + A.vals * xl[A.cols]
-        return _segment_sum_df32(p, e, A.row_ptr, A.max_row_nnz)
+        return reduce_pair(A.shard, *_segment_sum_df32(p, e, A.row_ptr, A.max_row_nnz))
+    if isinstance(A, RowShard):
+        hi, lo = matvec2(A.local, x_pair)
+        out = hi.new_zeros((2, A.m))
+        out[0, A.rows], out[1, A.rows] = hi, lo
+        return reduce_pair(A.shard, out[0], out[1])
     if isinstance(A, Bde):
         xg = _ext0(xh)[A.cols][:, None, :]           # [G, 1, cmax]
         p, e = two_prod(A.vals, xg)
@@ -146,12 +163,15 @@ def matvec2(A, x_pair):
 
 
 def rmatvec2(A, y_pair):
-    """Compensated A.T @ y for a dense, Coo or Bde A and a (hi, lo) pair."""
+    """Compensated A.T @ y for a dense, Coo, Bde or row-sharded A and a
+    (hi, lo) pair."""
     yh, yl = y_pair
     if isinstance(A, Coo):
         p, e = two_prod(A.cvals, yh[A.crows])
         e = e + A.cvals * yl[A.crows]
-        return _segment_sum_df32(p, e, A.col_ptr, A.max_col_nnz)
+        return reduce_pair(A.shard, *_segment_sum_df32(p, e, A.col_ptr, A.max_col_nnz))
+    if isinstance(A, RowShard):
+        return reduce_pair(A.shard, *rmatvec2(A.local, (yh[A.rows], yl[A.rows])))
     if isinstance(A, Bde):
         # per-group compensated row reductions, then a compensated sorted
         # segment sum over the column-sorted (group, lane) entries

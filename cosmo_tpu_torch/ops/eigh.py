@@ -281,7 +281,7 @@ def matmul_3xtf32(A, B):
 
 
 def psd_project_polar(X, quintic_iters: int = 9, cubic_iters: int = 6,
-                      tf32: bool = False):
+                      tf32: bool = False, split=None):
     """PSD projection via the matrix sign function: Pi(X) = (X + |X|)/2 with
     |X| = X sign(X), the sign computed by Newton-Schulz on X/||X||_F: an
     aggressive quintic phase (3 matmuls a step), then the cubic polish
@@ -294,11 +294,16 @@ def psd_project_polar(X, quintic_iters: int = 9, cubic_iters: int = 6,
     relative residuals of ``block_sdp(8, 256, 256)`` at ~3e-3, above the
     loose phase's switch (1e-3), so the phase never ends (PERF.md §6),
     as one bf16 pass does on the TPU (``cosmo_tpu.ops.projections:103-113``).
-    Other types ignore the flag."""
+    Other types ignore the flag.
+
+    ``split``: under a device mesh, a function that wraps a product so that
+    its output rows are split over the ranks (``ops/shard.split_rows_mm``),
+    for a bucket of fewer blocks than ranks."""
+    wrap = split if split is not None else (lambda mm: mm)
     if not (tf32 and X.dtype == torch.float32):
-        return _polar(X, quintic_iters, cubic_iters, torch.matmul)
+        return _polar(X, quintic_iters, cubic_iters, wrap(torch.matmul))
     with tf32_matmuls():
-        return _polar(X, quintic_iters, cubic_iters, matmul_3xtf32)
+        return _polar(X, quintic_iters, cubic_iters, wrap(matmul_3xtf32))
 
 
 def _polar(X, quintic_iters, cubic_iters, mm):

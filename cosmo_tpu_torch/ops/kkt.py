@@ -21,7 +21,9 @@ old)``, so a step past convergence changes nothing, and the host reads the
 condition once per block. The iterate and the step count are the
 reference's; a solve costs one host read per block instead of one per
 step. On a CUDA device the solver runs each block of CG steps as one
-replay of a CUDA graph (:class:`CGGraph`).
+replay of a CUDA graph (:class:`CGGraph`), except under a device mesh:
+there the products end in collectives, which a graph cannot capture, and
+the steps run eagerly.
 """
 from __future__ import annotations
 
@@ -122,11 +124,15 @@ class OverlapPrecond:
     child_rows: Any = None          # int64 [K] decomposed row of each +1 entry
     group: Any = None               # int64 [K] densified parent-row group id
     group_parent_row: Any = None    # int64 [G] row of each group's parent
+    fixed_order: bool = False       # sum the groups in a fixed order (a mesh)
 
 
-def make_overlap_precond(n0: int, child_rows, parent_rows, device=None) -> OverlapPrecond:
+def make_overlap_precond(n0: int, child_rows, parent_rows, device=None,
+                         fixed_order: bool = False) -> OverlapPrecond:
     """The preconditioner's structure from the transform's overlap row
-    lists, as int64 tensors on ``device`` (None: cuda)."""
+    lists, as int64 tensors on ``device`` (None: cuda). ``fixed_order``:
+    sum each group in one fixed order (``linops._segment_sum``), as a solve
+    over a device mesh does."""
     device = torch.device("cuda" if device is None else device)
     uniq, inverse = np.unique(np.asarray(parent_rows), return_inverse=True)
 
@@ -135,7 +141,12 @@ def make_overlap_precond(n0: int, child_rows, parent_rows, device=None) -> Overl
 
     return OverlapPrecond(n0=int(n0), n_groups=int(uniq.size),
                           child_rows=idx(child_rows), group=idx(inverse),
-                          group_parent_row=idx(uniq))
+                          group_parent_row=idx(uniq), fixed_order=bool(fixed_order))
+
+
+def _group_sum(precond: OverlapPrecond, v):
+    """The sum of ``v`` over each parent-row group."""
+    return _segment_sum(v, precond.group, precond.n_groups, precond.fixed_order)
 
 
 def _cg_params(P, A, sigma, rho_vec, precond, target):
@@ -147,7 +158,7 @@ def _cg_params(P, A, sigma, rho_vec, precond, target):
     if precond is not None:
         d2 = sigma + rho_vec[precond.child_rows]
         rho_p = rho_vec[precond.group_parent_row]
-        sd = _segment_sum(1.0 / d2, precond.group, precond.n_groups)
+        sd = _group_sum(precond, 1.0 / d2)
         prm.update(d2=d2, rho_p=rho_p, denom=1.0 + rho_p * sd)
     return prm
 
@@ -166,7 +177,7 @@ def _cg_fns(P, A, precond, prm, max_iter: int):
         n0, d2 = precond.n0, prm["d2"]
         z1 = prm["dinv"][:n0] * r[:n0]
         w = r[n0:] / d2
-        sw = _segment_sum(w, precond.group, precond.n_groups)
+        sw = _group_sum(precond, w)
         coef = prm["rho_p"] * sw / prm["denom"]
         return torch.cat([z1, w - coef[precond.group] / d2])
 

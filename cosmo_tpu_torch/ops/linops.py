@@ -12,6 +12,11 @@ through one interface over
 * :class:`Bde` — G contiguous groups of ``rb`` rows, each over at most
   ``cmax`` columns (one PSD block of a block-structured SDP per group), so
   a matvec is one small column selection plus a batched [rb, cmax] product.
+
+Under a device mesh (``cosmo_tpu_torch.parallel``) a ``Coo`` holds this
+rank's segment-aligned chunk of the triplets and a dense A may be a
+:class:`RowShard`; their products, column and row maxima end in one
+collective that reassembles the output on every rank (``ops/shard.py``).
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ from typing import Any, Tuple
 
 import numpy as np
 import torch
+
+from .shard import reduce_max, reduce_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,7 +37,14 @@ class Coo:
     nnz-index maps (ops/blockkkt.py) point into. ``row_ptr``/``col_ptr``
     are the CSR/CSC segment pointers into the two copies, with the longest
     segment of each: the compensated double-f32 matvecs (ops/df32.py)
-    reduce each row or column as one fixed-width gather."""
+    reduce each row or column as one fixed-width gather.
+
+    ``shard``: under a device mesh, the rank's :class:`~.shard.Shard`; the
+    triplets are then this rank's chunk of the segment-aligned layout of
+    ``cosmo_tpu_torch.parallel.shard_coo``, the pointers index the chunk,
+    and every reduction ends in a collective. ``fixed_order``: sum every
+    segment in one fixed order (:func:`_segment_sum`); every ``Coo`` of a
+    mesh solve, sharded or replicated, sets it."""
 
     m: int
     n: int
@@ -44,6 +58,8 @@ class Coo:
     col_ptr: Any = None  # int [n+1] segment starts in the column-sorted copy
     max_row_nnz: int = 0
     max_col_nnz: int = 0
+    shard: Any = None
+    fixed_order: bool = False
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -52,6 +68,44 @@ class Coo:
     @property
     def dtype(self):
         return self.vals.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """A dense A split by rows over a device mesh: ``local`` holds rows
+    ``lo`` to ``lo + rows`` of the [m, n] matrix (``cosmo_tpu.parallel.
+    mesh._row_put``). A product writes this rank's rows, or sums its rows'
+    share of A'y, and one collective reassembles it on every rank."""
+
+    m: int
+    n: int
+    lo: int
+    local: Any = None           # [rows, n]
+    shard: Any = None
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.m, self.n)
+
+    @property
+    def dtype(self):
+        return self.local.dtype
+
+    @property
+    def rows(self) -> slice:
+        return slice(self.lo, self.lo + self.local.shape[0])
+
+
+def full_vals(A: Coo):
+    """The row-sorted values of ``A`` in full on every rank: ``A.vals``, or
+    for a sharded ``Coo`` the padded layout of every rank's chunk, one sum
+    (the layout ``cosmo_tpu_torch.parallel.coo_shard_remap`` indexes)."""
+    if A.shard is None:
+        return A.vals
+    L = A.vals.shape[0]
+    out = A.vals.new_zeros(A.shard.size * L)
+    out[A.shard.rank * L:(A.shard.rank + 1) * L] = A.vals
+    return A.shard.sum(out)
 
 
 def coo_from_scipy(A, dtype=np.float64) -> Coo:
@@ -215,8 +269,21 @@ def _ext0(x):
 # matvecs
 # ----------------------------------------------------------------------
 
-def _segment_sum(vals, ids, num: int):
-    return vals.new_zeros(num).index_add_(0, ids, vals)
+def _segment_sum(vals, ids, num: int, fixed: bool = False):
+    """The sum of ``vals`` over each of the ``num`` segment ids ``ids``:
+    ``index_add_``, whose float atomics on a CUDA device may add in another
+    order on every run; or, ``fixed``, in one fixed order (a stable sort of
+    ``ids``, then ``torch.segment_reduce``), which gives the same bits on
+    every run. A solve over a device mesh sums every segment in the fixed
+    order, so that each replicated result has the same bits on every rank
+    and in every run (``ops/shard.py``). Both give the same bits on the
+    CPU."""
+    if not fixed:
+        return vals.new_zeros(num).index_add_(0, ids, vals)
+    ptr = torch.zeros(num + 1, dtype=torch.int64, device=ids.device)
+    ptr[1:] = torch.cumsum(torch.bincount(ids, minlength=num), 0)
+    return torch.segment_reduce(vals[torch.argsort(ids, stable=True)], "sum",
+                                offsets=ptr, unsafe=True)
 
 
 def _segment_amax(vals, ids, num: int):
@@ -234,22 +301,37 @@ def _segment_amax(vals, ids, num: int):
 SEGMENT_REDUCE_WIDTH = 128
 
 
-def _coo_segment_sum(prod, ids, ptr, num: int, widest: int):
+def _coo_segment_sum(prod, ids, ptr, num: int, widest: int, A: Coo):
     """The sum of each of the ``num`` segments of ``prod``, a sorted copy's
     products (the reference's ``segment_sum``): ``index_add_`` over the
     sorted ``ids``, or ``torch.segment_reduce`` over the pointers ``ptr``
-    where the ``widest`` segment reaches ``SEGMENT_REDUCE_WIDTH``. Both
+    where the ``widest`` segment reaches ``SEGMENT_REDUCE_WIDTH`` or ``A``
+    sums in a fixed order (``Coo.fixed_order``, :func:`_segment_sum`). Both
     give the same bits on the CPU; ``segment_reduce`` has no atomics, so on
-    a CUDA device its bits are the same on every run."""
-    if widest >= SEGMENT_REDUCE_WIDTH:
-        return torch.segment_reduce(prod, "sum", offsets=ptr, unsafe=True)
-    return _segment_sum(prod, ids, num)
+    a CUDA device its bits are the same on every run. A sharded ``A``'s
+    partial sums are reassembled."""
+    if widest >= SEGMENT_REDUCE_WIDTH or A.fixed_order:
+        out = torch.segment_reduce(prod, "sum", offsets=ptr, unsafe=True)
+    else:
+        out = _segment_sum(prod, ids, num)
+    return reduce_sum(A.shard, out)
+
+
+def _rows_out(A: RowShard, local_out):
+    """A [m] vector of this rank's rows of a row-sharded product,
+    reassembled on every rank."""
+    out = local_out.new_zeros(A.m)
+    out[A.rows] = local_out
+    return A.shard.sum(out)
 
 
 def matvec(A, x):
     """A @ x."""
     if isinstance(A, Coo):
-        return _coo_segment_sum(A.vals * x[A.cols], A.rows, A.row_ptr, A.m, A.max_row_nnz)
+        return _coo_segment_sum(A.vals * x[A.cols], A.rows, A.row_ptr, A.m,
+                                A.max_row_nnz, A)
+    if isinstance(A, RowShard):
+        return _rows_out(A, A.local @ x)
     if isinstance(A, Bde):
         if A.sel is not None:
             xg = (A.sel @ x).reshape(A.G, A.cmax)
@@ -263,7 +345,9 @@ def rmatvec(A, y):
     """A.T @ y."""
     if isinstance(A, Coo):
         return _coo_segment_sum(A.cvals * y[A.crows], A.ccols, A.col_ptr, A.n,
-                                A.max_col_nnz)
+                                A.max_col_nnz, A)
+    if isinstance(A, RowShard):
+        return A.shard.sum(A.local.T @ y[A.rows])
     if isinstance(A, Bde):
         t = torch.einsum("gcr,gr->gc", A.vals_t, y.reshape(A.G, A.rb))
         if A.sel is not None:
@@ -279,7 +363,9 @@ def rmatvec(A, y):
 def colmax_abs(A):
     """max_i |A_ij| per column j (0 for empty columns)."""
     if isinstance(A, Coo):
-        return _segment_amax(A.cvals.abs(), A.ccols, A.n)
+        return reduce_max(A.shard, _segment_amax(A.cvals.abs(), A.ccols, A.n))
+    if isinstance(A, RowShard):
+        return A.shard.max(colmax_abs(A.local))
     if isinstance(A, Bde):
         t = A.vals.abs().amax(dim=1)                # [G, cmax]
         return _ext0(t.reshape(-1))[A.ell_idx].amax(dim=1)
@@ -291,7 +377,9 @@ def colmax_abs(A):
 def rowmax_abs(A):
     """max_j |A_ij| per row i (0 for empty rows)."""
     if isinstance(A, Coo):
-        return _segment_amax(A.vals.abs(), A.rows, A.m)
+        return reduce_max(A.shard, _segment_amax(A.vals.abs(), A.rows, A.m))
+    if isinstance(A, RowShard):
+        return _rows_out(A, rowmax_abs(A.local))
     if isinstance(A, Bde):
         return A.vals.abs().amax(dim=2).reshape(A.m)
     if A.shape[1] == 0:
@@ -307,6 +395,8 @@ def scale_rows_cols(A, ew, dw):
             vals=A.vals * ew[A.rows] * dw[A.cols],
             cvals=A.cvals * ew[A.crows] * dw[A.ccols],
         )
+    if isinstance(A, RowShard):
+        return dataclasses.replace(A, local=scale_rows_cols(A.local, ew[A.rows], dw))
     if isinstance(A, Bde):
         ewg = ew.reshape(A.G, A.rb)
         dwg = _ext0(dw)[A.cols]
@@ -322,6 +412,8 @@ def scale_rows(A, ew):
     if isinstance(A, Coo):
         return dataclasses.replace(
             A, vals=A.vals * ew[A.rows], cvals=A.cvals * ew[A.crows])
+    if isinstance(A, RowShard):
+        return dataclasses.replace(A, local=scale_rows(A.local, ew[A.rows]))
     if isinstance(A, Bde):
         ewg = ew.reshape(A.G, A.rb)
         return dataclasses.replace(
@@ -334,6 +426,8 @@ def scale_all(A, c):
     """c * A with a scalar c."""
     if isinstance(A, Coo):
         return dataclasses.replace(A, vals=A.vals * c, cvals=A.cvals * c)
+    if isinstance(A, RowShard):
+        return dataclasses.replace(A, local=A.local * c)
     if isinstance(A, Bde):
         return dataclasses.replace(A, vals=A.vals * c, vals_t=A.vals_t * c)
     return A * c
@@ -352,7 +446,7 @@ def diag_part(P):
     if isinstance(P, Coo):
         on_diag = P.rows == P.cols
         return _coo_segment_sum(torch.where(on_diag, P.vals, torch.zeros_like(P.vals)),
-                                P.rows, P.row_ptr, P.m, P.max_row_nnz)
+                                P.rows, P.row_ptr, P.m, P.max_row_nnz, P)
     return torch.diagonal(P)
 
 
@@ -360,7 +454,9 @@ def diag_AtRhoA(A, rho_vec):
     """diag(A' diag(rho) A) = sum_i rho_i A_ij^2 per column j."""
     if isinstance(A, Coo):
         return _coo_segment_sum(rho_vec[A.crows] * A.cvals * A.cvals, A.ccols, A.col_ptr,
-                                A.n, A.max_col_nnz)
+                                A.n, A.max_col_nnz, A)
+    if isinstance(A, RowShard):
+        return A.shard.sum(diag_AtRhoA(A.local, rho_vec[A.rows]))
     if isinstance(A, Bde):
         t = torch.einsum("grc,gr,grc->gc", A.vals, rho_vec.reshape(A.G, A.rb),
                          A.vals)
@@ -384,4 +480,6 @@ def AtRhoA(A, rho_vec):
     if isinstance(A, Coo):
         raise TypeError("the dense KKT takes a dense or Bde A; a Coo A goes "
                         "through the block-diagonal KKT (ops/blockkkt.py)")
+    if isinstance(A, RowShard):
+        return A.shard.sum(AtRhoA(A.local, rho_vec[A.rows]))
     return A.T @ (rho_vec[:, None] * A)

@@ -11,6 +11,13 @@ The composite projection is a fixed sequence of batched ops:
 4. one kernel launch for all exponential cones and one for all power cones
    (:mod:`.exp_pow_proj`; the plain version on the CPU);
 5. each custom cone's own projection on its slice.
+
+Under a device mesh (``ConeData.shard``) each rank projects its slices of
+the stacks and writes them, with the clip of its own rows, into one zero
+vector; one sum reassembles the projection on every rank. A PSD bucket of
+fewer blocks than ranks is projected whole on every rank, its polar's
+products split over the matrix rows, and rank 0 writes it, as it writes
+the custom cones. The membership tests combine their ranks' verdicts.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from . import exp_pow_proj
 from . import jacobi_eig
 from . import jacobi_proj
 from .conedata import ConeData, PsdBucket, resolve_eigh_backend
+from .shard import split_rows_mm
 
 
 def _ext(v):
@@ -98,6 +106,9 @@ def _psd_project_bucket(X, cones: ConeData, bucket: PsdBucket | None = None,
     if backend == "pallas":
         return jacobi_proj.psd_project_pallas(X, cones.jacobi_sweeps)
     if backend == "polar":
+        if bucket is not None and bucket.split is not None:
+            return eigh_mod.psd_project_polar(
+                X, tf32=loose, split=lambda mm: split_rows_mm(bucket.split, mm))
         return eigh_mod.psd_project_polar(X, tf32=loose)
     if backend in ("jacobi", "jacobi_mm"):
         method = "mm" if backend == "jacobi_mm" else "vec"
@@ -131,6 +142,10 @@ def project(w2, cones: ConeData, eig_state=(), loose: bool = False):
     flag (:func:`_psd_project_bucket`)."""
     amortized = resolve_eigh_backend(cones.eigh_backend, device=w2.device) == "amortized"
     s = torch.clamp(w2, cones.lb, cones.ub)
+    sharded = cones.shard is not None
+    if sharded:
+        # the zero vector the ranks' parts are summed in, with a dump slot
+        s = _ext(torch.where(cones.own_rows, s, torch.zeros_like(s)))
     v_ext = _ext(w2)
 
     for bucket in cones.soc_buckets:
@@ -148,7 +163,8 @@ def project(w2, cones: ConeData, eig_state=(), loose: bool = False):
             new_state.append(V)
         else:
             Y = _psd_project_bucket(X, cones, bucket, loose)
-        s = _psd_scatter(s, Y, bucket)
+        if bucket.split is None or bucket.split.lead:
+            s = _psd_scatter(s, Y, bucket)
 
     ec, pc = cones.exp, cones.pow
     if ec is not None and ec.idx.shape[0] > 0:
@@ -159,12 +175,15 @@ def project(w2, cones: ConeData, eig_state=(), loose: bool = False):
             v_ext[pc.idx], pc.alpha, pc.is_dual, pc.tol, pc.max_iter))
 
     for offset, cone in cones.custom:
-        s[offset:offset + cone.dim] = cone.project(w2[offset:offset + cone.dim])
+        if not sharded or cones.shard.lead:
+            s[offset:offset + cone.dim] = cone.project(w2[offset:offset + cone.dim])
+    if sharded:
+        s = cones.shard.sum(s)[:-1]
     return s, tuple(new_state)
 
 
 def _set_rows(s, idx, P):
-    """s[idx] = P in place; ``idx`` holds no dump slot."""
+    """s[idx] = P in place; ``idx`` holds no dump slot, or ``s`` has one."""
     s[idx.reshape(-1)] = P.reshape(-1)
 
 
@@ -231,14 +250,18 @@ def in_pol_recc_multi(v, cones: ConeData, tols):
         margin = torch.maximum(margin, (nx + X[:, 0]).max())
     psd_X = [_psd_gather(v_ext, bucket) for bucket in cones.psd_buckets]
 
-    oks = []
+    stacked = []
     for tol in tols:
-        ok = margin <= tol
+        # in_pol_recc(v) = in_dual(-v); a dual cone's dual is the cone
+        ok = _exp_pow_in_dual(-v_ext, cones, tol)
         for X in psd_X:
             # lambda_max(X) <= tol  <=>  tol I - X is PSD
             ok = ok & _psd_all_pd(-X, tol)
-        # in_pol_recc(v) = in_dual(-v); a dual cone's dual is the cone
-        ok = ok & _exp_pow_in_dual(-v_ext, cones, tol)
+        stacked.append(ok)
+    margin, stacked = _combine(cones, margin, stacked)
+    oks = []
+    for tol, ok in zip(tols, stacked):
+        ok = ok & (margin <= tol)
         for offset, cone in cones.custom:
             v_c = v[offset:offset + cone.dim]
             if cone.in_pol_recc is not None:
@@ -251,6 +274,16 @@ def in_pol_recc_multi(v, cones: ConeData, tols):
                 ok = ok & _as_flag(False, v)
         oks.append(ok)
     return tuple(oks)
+
+
+def _combine(cones: ConeData, margin, oks):
+    """The membership margin and the per-tolerance verdicts of this rank's
+    stack slices combined over the mesh (one max); as they are without a
+    mesh."""
+    if cones.shard is None:
+        return margin, oks
+    both = cones.shard.max(torch.stack([margin] + [(~ok).to(margin.dtype) for ok in oks]))
+    return both[0], [bad == 0 for bad in both[1:]]
 
 
 def _as_flag(flag, like):
@@ -290,17 +323,21 @@ def support_function_multi(y, cones: ConeData, tols):
         margin = torch.maximum(margin, (nx - X[:, 0]).max())
     psd_Xn = [_psd_gather(-v_ext, bucket) for bucket in cones.psd_buckets]
 
-    outs = []
+    stacked = []
     for tol in tols:
+        ok = _exp_pow_in_dual(-v_ext, cones, tol)
+        for X in psd_Xn:
+            # lambda_min(X) >= -tol  <=>  X + tol I is PSD
+            ok = ok & _psd_all_pd(X, tol)
+        stacked.append(ok)
+    margin, stacked = _combine(cones, margin, stacked)
+    outs = []
+    for tol, ok in zip(tols, stacked):
         # Box rows (convexset.jl:850-856); guard 0 * inf
         contrib = torch.where(y > tol, y * cones.ub,
                               torch.where(y < -tol, y * cones.lb, zero))
         box_sum = torch.where(cones.box_mask, contrib, zero).sum()
-        ok = margin <= tol
-        for X in psd_Xn:
-            # lambda_min(X) >= -tol  <=>  X + tol I is PSD
-            ok = ok & _psd_all_pd(X, tol)
-        ok = ok & _exp_pow_in_dual(-v_ext, cones, tol)
+        ok = ok & (margin <= tol)
         custom_sum = torch.zeros((), dtype=y.dtype, device=y.device)
         for offset, cone in cones.custom:
             y_c = y[offset:offset + cone.dim]

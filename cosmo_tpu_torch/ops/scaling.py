@@ -1,7 +1,13 @@
 """Ruiz equilibration on the device (the port of ``cosmo_tpu.ops.scaling``;
 reference: src/scaling.jl:21-116). Non-separable cones are rectified to one
 scalar scaling per cone (scaling.jl:129-142) with a segment mean over the
-precomputed cone-row segments."""
+precomputed cone-row segments.
+
+Under a device mesh the column and row maxima of a sharded A come
+reassembled from ``ops/linops.py``, and the rectification's segment means
+are summed in a fixed order (``linops._segment_sum``), so that every rank
+scales by the same bits in every run; the scaling runs eagerly there (no
+:class:`RuizGraph`)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -138,10 +144,12 @@ def _ruiz(P, A, q, b, cones: ConeData, iters: int, dyn):
     # rectify cones that only admit scalar scaling (scaling.jl:87-97)
     if cones.n_rect_segments > 0:
         nseg = cones.n_rect_segments + 1  # + dump segment
-        seg_sum = E.new_zeros(nseg).index_add_(
-            0, cones.rect_seg, torch.where(cones.rect_mask, E, torch.zeros_like(E)))
-        seg_cnt = E.new_zeros(nseg).index_add_(
-            0, cones.rect_seg, cones.rect_mask.to(E.dtype))
+        fixed = cones.shard is not None
+        seg_sum = linops._segment_sum(
+            torch.where(cones.rect_mask, E, torch.zeros_like(E)), cones.rect_seg, nseg,
+            fixed)
+        seg_cnt = linops._segment_sum(cones.rect_mask.to(E.dtype), cones.rect_seg, nseg,
+                                      fixed)
         seg_mean = seg_sum / torch.clamp(seg_cnt, min=1.0)
         ework = torch.where(cones.rect_mask, seg_mean[cones.rect_seg] / E,
                             torch.ones_like(E))

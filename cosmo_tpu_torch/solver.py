@@ -45,6 +45,17 @@ residuals first fall to ``mixed_precision_switch`` at a termination check
 (``Settings.kkt_solver = CustomKKTSolver(setup, solve)``) takes the place of
 the built-in factor and solve.
 
+Under a device mesh (``ConeData.shard``, ``cosmo_tpu_torch.parallel``)
+every rank runs this loop on replicated vectors, and the sharded operators
+reassemble their outputs (``ops/shard.py``). Every host decision must be
+the same on every rank, or one rank leaves the loop while another waits in
+a collective: the values a termination check, a rho adaptation and an
+infeasibility check read go through one max over the ranks before the host
+reads them, and the time limit is rank 0's clock, shared through that max.
+The other flags the host reads (the safeguard's, the plain-iteration flag,
+CG's loop condition) are computed from replicated tensors, which hold the
+same bits on every rank. The CG steps run eagerly there (no CUDA graph).
+
 A solve can stop and resume: ``return_carry=True`` returns the loop state
 (:class:`LoopCarry`, the device tensors with the host counters and flags)
 and the set-up outputs (:class:`SetupState`); ``carry_in``/``setup_in``
@@ -69,7 +80,7 @@ from .ops import kkt as kkt_ops
 from .ops import projections
 from .ops import residuals as res_ops
 from .ops import scaling as scaling_ops
-from .ops.linops import Coo
+from .ops.linops import Coo, full_vals
 from .settings import DynConfig, StaticConfig, KKT_BLOCK, KKT_CG, KKT_DENSE, KKT_MINRES
 from .utils import printing
 
@@ -299,6 +310,7 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
            scale_graph):
     m, n = static.m, static.n
     dtype, device = q.dtype, q.device
+    shard = cones.shard
     accel_on = static.accel_mem > 0
     guarded = accel_on and static.safeguard
 
@@ -384,6 +396,10 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
             kkt_block, c.kkt, c.w_prev[:nx], s_k, mu_k, b, qx,
             Einv_v, x_to_block(Dv), cinv_v, Px_pair_g, covered=res_covered)
 
+    # the block KKT's pair lists read A's values in full: under a mesh one
+    # sum gathers them, once for every factorization of the solve
+    a_vals = full_vals(A) if use_block else None
+
     def kkt_setup(rho_vec):
         if custom_kkt:
             return static.kkt_solver.setup(P, A, dyn.sigma, rho_vec)
@@ -391,13 +407,14 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
             return None                       # matrix-free: no factor
         if use_block:
             return blockkkt.factor(kkt_block, P, A, dyn.sigma, rho_vec,
-                                   build_pair=static.kkt_refine_steps > 0)
+                                   build_pair=static.kkt_refine_steps > 0,
+                                   a_vals=a_vals)
         # the explicit-inverse apply is plain-ADMM-only (kkt.dense_factor)
         return kkt_ops.dense_factor(P, A, dyn.sigma, rho_vec, not accel_on)
 
     # CG's blocks of steps as one CUDA graph replay each on the card
     cg_graph = (kkt_ops.CGGraph() if static.kkt_solver == KKT_CG and device.type == "cuda"
-                else None)
+                and shard is None else None)
 
     def kkt_solve(kkt, rho_vec, r1, r2, refine_on, sol_prev, admm_iter, res_min):
         """(x_tilde, nu, CG steps or None, host reads)"""
@@ -470,8 +487,11 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
     eig_fresh = projections.init_eig_state(cones, dtype, device)
 
     def host(c: LoopCarry, t):
-        """A device tensor's values on the host: one wait."""
+        """A device tensor's values on the host: one wait; under a mesh, the
+        values' max over the ranks."""
         c.syncs += 1
+        if shard is not None:
+            t = shard.max(t.to(dtype))
         return t.tolist()
 
     big = torch.full((), float("inf"), dtype=dtype, device=device)
@@ -608,6 +628,11 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
             # the loose phase ends, one way, at the first check whose
             # relative residuals reach the switch
             flags.append(rel > dyn.mixed_precision_switch)
+        shared_clock = shard is not None and deadline is not None
+        if shared_clock:
+            # under a mesh the time limit is rank 0's clock
+            flags.append(torch.tensor(shard.lead and time.perf_counter() > deadline,
+                                      device=device))
         row = [cost, info.r_prim, info.r_dual, c.rho] if static.verbose else []
         read = host(c, torch.stack([f.to(dtype) for f in flags] + row))
         unsolved, converged, tripped, fired = (bool(f) for f in read[:4])
@@ -622,7 +647,8 @@ def _solve(P, A, q, b, cones, x0, s0, mu0, dyn, static, kkt_block, rho_row_scale
         # the host has just read this check's flags, so the clock costs no
         # wait; the solve keeps the iterate the check measured
         if (c.status == results.UNDETERMINED and deadline is not None
-                and time.perf_counter() > deadline):
+                and (read[len(flags) - 1] if shared_clock
+                     else time.perf_counter() > deadline)):
             c.status = results.TIME_LIMIT_REACHED
         if tripped:
             c.refine_on, c.refine_iter = True, c.it

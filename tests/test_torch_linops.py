@@ -55,7 +55,11 @@ def test_bde_from_scipy_rejects_like_reference():
 def test_coo_from_scipy_fields_identical():
     A, _ = _block_matrix()
     jc, tc = jl.coo_from_scipy(A, np.float64), tl.coo_from_scipy(A, np.float64)
+    # the port's mesh fields (unsharded, atomic sums allowed)
+    assert tc.shard is None and tc.fixed_order is False
     for f in dataclasses.fields(tc):
+        if f.name in ("shard", "fixed_order"):
+            continue
         jv, tv = getattr(jc, f.name), getattr(tc, f.name)
         if isinstance(tv, np.ndarray):
             assert np.array_equal(np.asarray(jv), tv), f.name
@@ -182,3 +186,16 @@ def test_coo_segment_sums_match_index_add():
              tl._segment_sum(rho[c.crows] * c.cvals * c.cvals, c.ccols, width))):
         assert torch.equal(got, ref)
     assert np.abs(tl.matvec(c, x).numpy() - A @ x.numpy()).max() <= 1e-14
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+def test_fixed_order_segment_sum_matches_index_add(ids_dtype):
+    """linops._segment_sum(fixed=True), the sum a solve over a device mesh
+    takes (a stable sort, then segment_reduce: no float atomics), gives on
+    the CPU the bits of index_add_, with empty segments and no values."""
+    rng = np.random.default_rng(5)
+    vals = torch.as_tensor(rng.standard_normal(500).astype(np.float32))
+    ids = torch.as_tensor(rng.integers(0, 40, 500), dtype=ids_dtype)
+    for v, i in ((vals, ids), (vals[:0], ids[:0])):
+        assert torch.equal(tl._segment_sum(v, i, 45, fixed=True),
+                           tl._segment_sum(v, i, 45))

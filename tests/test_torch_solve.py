@@ -261,10 +261,15 @@ def test_formerly_unported_options_match_reference(settings, build, kkt):
         assert mt.last_solve["A_layout"] == "Coo"
 
 
-def test_unported_cones_and_mesh_raise():
-    """A device mesh still raises; the exponential cone, which raised
-    before the seventh slice, solves as the reference does (max x s.t.
-    (x, 1, e^2) in K_exp: x = 2)."""
+def test_unported_cones_and_mesh_raise(tmp_path):
+    """A one-rank gloo mesh solves the QP bit for bit as the unsharded solve
+    does, and a mesh argument that is not a mesh raises TypeError; the
+    exponential cone, which raised before the seventh slice, solves as the
+    reference does (max x s.t. (x, 1, e^2) in K_exp: x = 2)."""
+    import torch.distributed as dist
+
+    from cosmo_tpu_torch.parallel import make_mesh
+
     def build(mod, model):
         return model.set(np.zeros((1, 1)), [-1.0], [[-1.0], [0.0], [0.0]],
                          [0.0, 1.0, np.exp(2.0)], [mod.ExponentialCone()])
@@ -272,6 +277,17 @@ def test_unported_cones_and_mesh_raise():
     _, rj, _, rt = _solve_both(build, PLAIN)
     assert rt.status == "Solved" and abs(rt.x[0] - 2.0) < 1e-3
     _assert_same(rj, rt)
-    model = _qp(pt, pt.Model(pt.Settings(**PLAIN), device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.optimize(mesh=object())
+    r1 = _qp(pt, pt.Model(pt.Settings(**PLAIN), device="cpu")).optimize()
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        model = _qp(pt, pt.Model(pt.Settings(**PLAIN), device="cpu"))
+        rm = model.optimize(mesh=make_mesh(1))
+        assert model.last_solve["mesh_ranks"] == 1 and model.last_solve["collectives"] > 0
+        for a in ("x", "y", "s"):
+            np.testing.assert_array_equal(getattr(rm, a), getattr(r1, a))
+        assert rm.iter == r1.iter and rm.status == r1.status == "Solved"
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            model.optimize(mesh=object())
+    finally:
+        dist.destroy_process_group()

@@ -10,7 +10,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 2. build: compiles both kernels' libraries with nvcc for sm_90a, one nvcc
    per source, all started together: the Jacobi kernels' from
    ``cosmo_tpu_torch/csrc/jacobi_proj.cu``, ``jacobi_proj_rr.cu``,
-   ``jacobi_eig.cu`` and ``jacobi_smem.cu``, the exp/pow cone projection's from
+   ``jacobi_eig.cu``, ``jacobi_smem.cu`` and ``jacobi_eig_large.cu``, the
+   exp/pow cone projection's from
    ``exp_pow_proj.cu``; prints the ptxas reports and fails if any Jacobi
    register body instantiation (``jacobi_proj_regs``) has a stack frame
    or spills, or an exp/pow instantiation spills;
@@ -46,10 +47,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    in float32 (the card's default; the float64 solve is left out for the
    run's time), against the known objective; checks the block KKT, that
    every projection went through ``jacobi_proj``, that the refine latch
-   tripped and Anderson accelerated. A second solve on the same model
-   profiles 20 plain and 20 refined iterations (``torch.profiler``) for
-   the device operations an iteration, under
-   ``torch.cuda.set_sync_debug_mode("warn")``;
+   tripped and Anderson accelerated. A second solve on the same model, cut
+   to its first 1,000 iterations for the run's time, profiles 10 plain and
+   10 refined iterations (``torch.profiler``) for the device operations an
+   iteration, under ``torch.cuda.set_sync_debug_mode("warn")``;
 7. maxcut: the decomposed maxcut SDP of ``bench.py``, float32, one first
    solve of ``problems.maxcut(10000, 4/10000, seed=0, sparse=True)`` at
    ``_bench_maxcut10k``'s settings (with its 600 s time limit; the
@@ -57,22 +58,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    lambda_min(diag(x) - L/4) >= -1e-3 (dense, float64, on the card). Checks
    that the Jacobi kernel took exactly the dominant side-8 bucket, every
    projection of it, the polar every other bucket, and that the shear (and
-   at 10k the colpad) layout is on the path; the 10k solve profiles 20
-   plain and 20 refined iterations for the device operations an iteration;
+   at 10k the colpad) layout is on the path; the 10k solve profiles 10
+   plain and 10 refined iterations for the device operations an iteration
+   (20 and 20 before the amortized phases 10e-10g took their time);
 8. cg and re-solves: (a) the decomposed banded SDP of phase 6 with
    ``kkt_solver="cg"``, float32: ``Coo``, the overlap preconditioner, CG
    with the df32 restarts after the refine latch, ``jacobi_proj`` on every
    projection, against the known objective; (b) the portfolio QP of the
    OSQP benchmarks at k = 200 factors (n = 20,000 assets, ~2M non-zeros,
    made from ``--seed``), default settings in float64 (``PORTFOLIO``),
-   through the auto CG route: a cold solve at gamma = 1, then ``update(q)``
-   and a warm start for gamma = 2, each Solved, held to float64 host checks
-   of x, y and s against the solver's stopping rule, the duality gap
-   within ``PORTFOLIO_GAP_TOL`` and the objective within twice that gap of
-   the optimum of ``problems.portfolio_optimum`` (the gamma = 1 objective
-   is also reported against the JAX package's ``REF_PORTFOLIO``); (c) the
-   gamma = 1 problem's first 100 iterations through
-   ``solver.solve_chunked`` in chunks of 50 against the same iterations
+   through the auto CG route: a cold solve at gamma = 1, Solved, held to
+   float64 host checks of x, y and s against the solver's stopping rule,
+   the duality gap within ``PORTFOLIO_GAP_TOL`` and the objective within
+   twice that gap of the optimum of ``problems.portfolio_optimum`` (also
+   reported against the JAX package's ``REF_PORTFOLIO``), then
+   ``update(q)`` and a warm start for gamma = 2, run for its first 250
+   iterations with x, y and s finite (its whole solve is left out for the
+   run's time; its checks are logged); (c) the
+   gamma = 1 problem's first 50 iterations through
+   ``solver.solve_chunked`` in chunks of 25 against the same iterations
    in one call (the same status and iterations, objective within 1e-5;
    the whole solve in chunks is left out for the run's time); (d) the
    re-solve with ``verbose_timing``, its phase
@@ -97,6 +101,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    projection adds no host read; (c) ``block_sdp(512, 16, 512)`` with
    ``eigh_backend="jacobi_mm"`` against the known objective; (d) every
    example of ``cosmo_tpu_torch/examples`` through its ``main("cuda")``;
+   (e) the large-side kernel of the amortized backend
+   (``csrc/jacobi_eig_large.cu``, side 2 and the sides above 48) against
+   its plain version (float32 and float64, k in ``LARGE_SIDES`` at B in
+   {1, 8}, B = 1 at 896, warm and stale), timed and bounded at [8, 256]
+   float64 and [1, 896] float32 at 2 and 8 sweeps; (f)
+   ``block_sdp(8, 256, 256)`` at ``REF_BLOCK8X256``'s plain settings in
+   float64 with ``eigh_backend="amortized"`` against ``REF_BLOCK8X256``,
+   the large kernel on every projection, the full-sweep tally, and a
+   second solve under sync debug; (g) maxcut-10k at ``_bench_maxcut10k``'s
+   settings with plain ADMM and the amortized backend for 100 iterations,
+   every bucket's kernel logged, the [1, 896] colpad bucket through the
+   large kernel on every projection, its first projection and the first
+   later one of each regime (warm, full sweeps) held kernel against plain
+   version;
 11. mesh: ``Model.optimize(mesh=parallel.make_mesh())`` on ranks it spawns
    (gloo on the loopback, each process group with a 300 s time limit), after
    the unsharded references: (a) maxcut-10k at ``_bench_maxcut10k``'s
@@ -135,6 +153,11 @@ REF_BANDED = 26934.834386732622
 # bench.py _bench_northstar without its time limit; dtype None: float32 on
 # the card
 NORTHSTAR = dict(eps_abs=1e-5, eps_rel=1e-5, max_iter=20000, decompose=True)
+# the profiled windows of phases 6 and 7: WINDOW plain iterations from the
+# 100th and WINDOW after the refine latch; phase 6's profiled second solve
+# stops at PROFILED_ITERS (its latch trips at iteration 475)
+WINDOW = 10
+PROFILED_ITERS = 1000
 # bench.py _bench_maxcut_default and _bench_maxcut10k
 MAXCUT_DEFAULT = dict(eps_abs=1e-5, eps_rel=1e-5, max_iter=20000, decompose=True,
                       dtype=np.float32)
@@ -149,10 +172,14 @@ BANDED_CG = dict(NORTHSTAR, kkt_solver="cg")
 # k = 200 on the card the same
 PORTFOLIO = dict(eps_abs=1e-5, eps_rel=1e-5, dtype=np.float64)
 PORTFOLIO_K = 200
-# the re-solve after the cold gamma = 1 (gamma = 0.5 and 4 left out for time)
+# the re-solve after the cold gamma = 1 (gamma = 0.5 and 4 left out for
+# time), cut to its first PORTFOLIO_RESOLVE_ITERS iterations for the run's
+# time (its whole solve, Solved within twice its duality gap, took 1,671
+# iterations, ~96 s)
 PORTFOLIO_GAMMA = 2.0
+PORTFOLIO_RESOLVE_ITERS = 250
 # phase 8c: the chunked solve's depth and chunk
-CHUNKED_ITERS, CHUNK = 100, 50
+CHUNKED_ITERS, CHUNK = 50, 25
 # the optimum of problems.portfolio(200, gamma, seed=0), independent of the
 # ADMM solver: problems.portfolio_optimum(200, gamma) (an interior-point
 # method in float64 on the host, to a complementarity gap below 1e-13)
@@ -211,8 +238,11 @@ NCCL_ITERS = 200
 MESH_TIMEOUT_S = 300
 SWEEPS = 8                      # Settings.jacobi_sweeps default
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): float32 and
-# float64 outside the tensor cores, and HBM3 bandwidth
+# float64 outside the tensor cores; a matrix product of each type (float32
+# outside the tensor cores, as torch runs it without TF32; float64 on the
+# tensor cores); HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_MATMUL_FLOPS = {"float32": 67e12, "float64": 67e12}
 PEAK_BYTES = 3.35e12
 # kernel vs plain version, relative to max |X|: f64 differs by rounding
 # order only; in f32 each side carries the ~2e-5 Jacobi floor
@@ -287,6 +317,11 @@ def phase_build():
         f"stack frame or spills; registers {sorted(f[3] for f in regs.values())}")
     if len(regs) != REGISTER_BODIES or bad:
         raise AssertionError(f"{so.name}: register bodies {regs}")
+    large = {n: f for n, f in ptxas_frames(report).items() if "jacobi_eig_large" in n}
+    log(f"[build] jacobi_eig_large instantiations (stack frame, spill stores, spill "
+        f"loads, registers): {large}")
+    if len(large) != 2:
+        raise AssertionError(f"{so.name}: jacobi_eig_large {large}")
     log(f"[build] in {seconds:.2f} s")
     return seconds
 
@@ -298,17 +333,22 @@ def _stack(B, k, dtype, device, seed):
     return torch.as_tensor((G + G.swapaxes(1, 2)) / 2, dtype=dtype, device=device)
 
 
+def ops_seconds(flops, matmul_flops, dtype_name):
+    """Least time on an H100 for ``flops`` of elementwise work and
+    ``matmul_flops`` of a matrix product, each at the card's peak for the
+    type and the kind of work."""
+    return flops / PEAK_FLOPS[dtype_name] + matmul_flops / PEAK_MATMUL_FLOPS[dtype_name]
+
+
 def jacobi_bound_ms(B, k, dtype_name, sweeps=SWEEPS):
     """Least time for the projection of this stack on an H100: the larger of
-    its flops at the card's peak for the type (n_pairs rotations a sweep,
-    each 18k + 20 flops, then the 2k^3 reconstruction) and its bytes (the
-    input read once, the output written once) at the memory rate."""
+    its flops (n_pairs rotations a sweep, each 18k + 20 flops, then the
+    2k^3 reconstruction, a matrix product; ``ops_seconds``) and its bytes
+    (the input read once, the output written once) at the memory rate."""
     itemsize = 4 if dtype_name == "float32" else 8
     n_pairs = (k - 1) * (k // 2)
-    flops = B * (sweeps * n_pairs * (18 * k + 20) + 2 * k**3)
-    nbytes = 2 * B * k * k * itemsize
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    t_bytes = nbytes / PEAK_BYTES
+    t_ops = ops_seconds(B * sweeps * n_pairs * (18 * k + 20), B * 2 * k**3, dtype_name)
+    t_bytes = 2 * B * k * k * itemsize / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -413,7 +453,8 @@ def counted_optimize(model, on_iter=None):
                  "jacobi_proj_rr": R.psd_project_rr.launches,
                  "exp_pow_proj/exp": K.project_exp.launches,
                  "exp_pow_proj/pow": K.project_pow.launches,
-                 "jacobi_eig": sum(JE.psd_project_amortized.launches.values())}
+                 "jacobi_eig": JE.launches_of("jacobi_eig"),
+                 "jacobi_eig_large": JE.launches_of("jacobi_eig_large")}
 
 
 def phase_slice(device, smi):
@@ -511,9 +552,10 @@ def phase_default(device, smi):
     """The decomposed banded SDP at the north-star settings: Anderson
     acceleration, the refine latch and the df32 block KKT, through the
     Jacobi kernel. One first solve in float32; then a second float32 solve
-    on the same model with two profiled windows of iterations under the
-    sync debug mode "warn" (which slows it: its time is not reported). The
-    float64 solve of this phase is left out for the run's time."""
+    on the same model, cut to ``PROFILED_ITERS`` iterations, with two
+    profiled windows of ``WINDOW`` iterations under the sync debug mode
+    "warn" (which slows it: its time is not reported). The float64 solve of
+    this phase is left out for the run's time."""
     import warnings
 
     import torch
@@ -526,10 +568,11 @@ def phase_default(device, smi):
     model = pt.Model(pt.Settings(**NORTHSTAR), device=device).set(*data)
     res, counts = counted_optimize(model)
     out["float32"] = _check_default(model, res, counts, "float32", "cold", 1e-4, smi)
+    model.settings = model.settings.replace(max_iter=PROFILED_ITERS)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
-        windows = IterationWindows(caught)
+        windows = IterationWindows(caught, width=WINDOW)
         try:
             res = model.optimize(on_iter=windows)
         finally:
@@ -545,7 +588,8 @@ def phase_default(device, smi):
         f"operations an iteration {per}; torch-flagged synchronizing calls "
         f"{len(flagged)} ({latch} before the latch), solver host waits "
         f"{model.last_solve['syncs']} [{smi}]")
-    if res.status != "Solved" or set(per) != {"plain", "refined"}:
+    if (res.status, res.iter) != ("Max_iter_reached", PROFILED_ITERS) or set(per) != {
+            "plain", "refined"}:
         raise AssertionError(f"default float32 profiled run: {res.status}, {per}")
     return out
 
@@ -628,7 +672,7 @@ def slack_lambda_min(x, L, device):
 def phase_maxcut(device, smi):
     """The decomposed maxcut SDP in float32: maxcut-10k at
     ``_bench_maxcut10k``'s settings (the literal north star of
-    BASELINE.json) with 20 plain and 20 refined iterations profiled, held
+    BASELINE.json) with 10 plain and 10 refined iterations profiled, held
     to lambda_min(diag(x) - L/4) >= -1e-3. The maxcut-2000 solve of earlier
     runs is left out for the run's time (its [1729, 8] kernel shape stays
     in phase 3; tests/test_torch_maxcut.py holds maxcut to the JAX package
@@ -644,7 +688,7 @@ def phase_maxcut(device, smi):
     P, q, A, b, sets, L = problems.maxcut(n_nodes, 4.0 / n_nodes, seed=0, sparse=True)
     gen_s = time.perf_counter() - t0
     model = pt.Model(pt.Settings(**MAXCUT10K), device=device).set(P, q, A, b, sets)
-    windows = IterationWindows()
+    windows = IterationWindows(width=WINDOW)
     res, counts = counted_optimize(model, on_iter=windows)
     info, t = model.last_solve, res.times
     psd, blocks = _maxcut_path(model, counts, label)
@@ -780,7 +824,7 @@ def phase_cg(device, smi, seed):
     model = pt.Model(pt.Settings(**PORTFOLIO), device=device).set(P, q, A, b, sets)
     runs = {}
 
-    def solve(label, gamma, qv):
+    def solve(label, gamma, qv, fixed_iters=None):
         res = model.optimize()
         info, t = model.last_solve, res.times
         opt = (PORTFOLIO_OPT[gamma] if seed == 0
@@ -806,7 +850,12 @@ def phase_cg(device, smi, seed):
             f"{t.setup_time:.3f} s, solve {info['iter_time']:.3f} s, "
             f"{row['iter_per_s']:.2f} iter/s, host waits an iteration "
             f"{row['host_waits_per_iter']}, checks {checks} [{smi}]")
-        if res.status != "Solved" or info["kkt_solver"] != "cg" or not ok:
+        if fixed_iters is None:
+            done = res.status == "Solved" and ok
+        else:
+            done = ((res.status, res.iter) == ("Max_iter_reached", fixed_iters)
+                    and all(bool(np.isfinite(v).all()) for v in (res.x, res.y, res.s)))
+        if not done or info["kkt_solver"] != "cg":
             raise AssertionError(f"portfolio {label}: {res.status}, {info['kkt_solver']}, "
                                  f"obj {res.obj_val} against {opt}, {checks}")
         return res
@@ -856,12 +905,15 @@ def phase_cg(device, smi, seed):
             or not rel <= 1e-5):
         raise AssertionError(f"chunked portfolio: {out['chunked']}")
 
-    # the re-solve: update(q) and a warm start from the cold solution, (d)
-    # with the phase timers on
+    # the re-solve: update(q) and a warm start from the cold solution for
+    # PORTFOLIO_RESOLVE_ITERS iterations (x, y and s finite), (d) with the
+    # phase timers on
     qv = problems.portfolio_q(mu, k, PORTFOLIO_GAMMA)
     model.update(q=qv).warm_start(x0=cold.x, y0=cold.y, s0=cold.s)
-    model.settings = model.settings.replace(verbose_timing=True)
-    warm = solve(f"gamma={PORTFOLIO_GAMMA:g} warm", PORTFOLIO_GAMMA, qv)
+    model.settings = model.settings.replace(verbose_timing=True,
+                                            max_iter=PORTFOLIO_RESOLVE_ITERS)
+    warm = solve(f"gamma={PORTFOLIO_GAMMA:g} warm", PORTFOLIO_GAMMA, qv,
+                 fixed_iters=PORTFOLIO_RESOLVE_ITERS)
     times = warm.times
     timers = {n_: getattr(times, n_) for n_ in (
         "scaling_time", "init_factor_time", "factor_update_time", "proj_time",
@@ -1227,7 +1279,7 @@ def phase_logistic(device, smi, seed):
     return out
 
 
-def phase_mixed(device, smi, fixed_iters=300):
+def phase_mixed(device, smi, fixed_iters=150):
     """9b: bench.py's block_sdp_8x256_mixed_loose configuration, float32:
     block_sdp(8, 256, 256) through the polar projection with plain ADMM
     (no rho adaptation, scaling 10, checks every 25) and mixed_precision.
@@ -1326,43 +1378,64 @@ EIG_SIDES = tuple(range(4, 49, 2))
 EIG_BATCHES = (1, 1000, 2498)
 EIG_TIMED = ((16, 2498), (8, 8540))
 WARM_SWEEPS = 2
+# phase 10e: the large-side kernel's shapes (k = 2 and sides above 48 at B
+# in {1, 8}; B = 1 at 896), and the two timed at 2 and 8 sweeps: 10f's
+# [8, 256] bucket in float64 and 10g's [1, 896] colpad bucket in float32
+LARGE_SIDES = (2, 50, 56, 64, 96, 128, 256, 258, 512, 896)
+LARGE_TIMED = ((256, 8, "float64"), (896, 1, "float32"))
+# 10f: block_sdp(8, 256, 256) at REF_BLOCK8X256's plain settings in float64,
+# eps 1e-5, with the amortized backend
+BLOCK8X256_AMORTIZED = dict(accelerator=None, adaptive_rho=False, check_termination=25,
+                            scaling=10, decompose=False, eps_abs=1e-5, eps_rel=1e-5,
+                            max_iter=20000, dtype=np.float64, eigh_backend="amortized")
+# 10g: maxcut-10k at _bench_maxcut10k's settings with plain ADMM and the
+# amortized backend for a fixed 100 iterations (11a's depth)
+MAXCUT10K_AMORTIZED = dict(MAXCUT10K, accelerator=None, eigh_backend="amortized",
+                           max_iter=100)
 
 
-def eig_case(B, k, warm, dtype, device, seed):
-    """(X, W, V0) of one amortized projection, made from ``seed``: X a
+def eig_case(B, k, warm, seed):
+    """(X, W, V0) of one amortized projection in float64 numpy arrays, made
+    from ``seed``: X a
     symmetric Gaussian stack; warm, V0 its eigenbasis (numpy, float64)
-    turned by a random orthogonal matrix near I (angles ~0.01: a block's
-    off-diagonal mass stays a few percent of its energy, under the
-    staleness rule's 9%) and W = V0' X V0 symmetrised; stale, V0 = I and
-    W = X."""
-    import torch
-
+    turned by a random orthogonal matrix near I (angles ~0.01, and ~0.01
+    sqrt(48 / k) above k = 48: a block's off-diagonal mass, which grows with
+    k, stays a few percent of its energy, under the staleness rule's 9%) and
+    W = V0' X V0 symmetrised; stale, V0 = I and W = X, X drawn again from
+    the same generator until some block's off-diagonal mass exceeds the
+    rule's 9% of its energy (at k = 2 a Gaussian block can fall under it;
+    from k = 4 on the first draw is stale)."""
     rng = np.random.default_rng(seed)
-    G = rng.standard_normal((B, k, k))
-    X = (G + G.swapaxes(1, 2)) / 2
+    while True:
+        G = rng.standard_normal((B, k, k))
+        X = (G + G.swapaxes(1, 2)) / 2
+        tot2 = (X * X).sum(axis=(1, 2))
+        off2 = tot2 - (np.diagonal(X, axis1=1, axis2=2) ** 2).sum(axis=1)
+        if warm or (off2 > 0.09 * tot2).any():
+            break
     if warm:
-        R = rng.standard_normal((B, k, k)) * 0.01
+        R = rng.standard_normal((B, k, k)) * 0.01 * min(1.0, np.sqrt(48 / k))
         R, _ = np.linalg.qr(np.eye(k) + (R - R.swapaxes(1, 2)))
         V0 = np.linalg.eigh(X)[1] @ R
         W = V0.swapaxes(1, 2) @ X @ V0
         W = (W + W.swapaxes(1, 2)) / 2
     else:
         V0, W = np.broadcast_to(np.eye(k), (B, k, k)), X
-    return tuple(torch.as_tensor(np.array(a, order="C"), dtype=dtype, device=device)
-                 for a in (X, W, V0))
+    return X, W, V0
 
 
 def eig_bound_ms(B, k, dtype_name, sweeps):
     """Least time of one warm-started Jacobi call on an H100: the larger of
-    its flops at the card's peak for the type (n_pairs rotations a sweep,
-    each 18k + 20 flops, then P = V max(w, 0) V', 2k^3, and its
-    symmetrisation, k^2) and its bytes (W and V0 read once, P and V written
-    once) at the memory rate. The kernel sums each entry of P twice, once
-    for each side of the symmetrisation; the function needs one sum."""
+    its flops (n_pairs rotations a sweep, each 18k + 20 flops, and the
+    symmetrisation of P, k^2, elementwise; P = V max(w, 0) V', 2k^3, a
+    matrix product; ``ops_seconds``) and its bytes (W and V0 read once, P
+    and V written once) at the memory rate. The kernel jacobi_eig sums each
+    entry of P twice, once for each side of the symmetrisation; the
+    function needs one sum."""
     itemsize = 4 if dtype_name == "float32" else 8
-    flops = B * (sweeps * (k - 1) * (k // 2) * (18 * k + 20) + 2 * k**3 + k**2)
-    nbytes = 4 * B * k * k * itemsize
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
+    t_ops = ops_seconds(B * (sweeps * (k - 1) * (k // 2) * (18 * k + 20) + k**2),
+                        B * 2 * k**3, dtype_name)
+    t_bytes = 4 * B * k * k * itemsize / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -1391,76 +1464,173 @@ def eig_diffs(X, got, ref):
             (rec(got[1]) - rec(ref[1])).abs().max().item())
 
 
-def phase_eig_kernel(device, reps=20):
-    """10a: the warm-started Jacobi kernel (jacobi_eig) against its plain
-    version, float32 and float64, at every shape of ``EIG_SIDES`` by
-    ``EIG_BATCHES`` and [8540, 8], one warm case (V0 near W's eigenbasis, 2
-    sweeps) and one stale (V0 = I, 8 sweeps) each, each of which the
-    backend's staleness rule (``eigh.amortized_rotate``) classes as such: P
-    and V diag(V'XV) V' within ``TOL`` of max |X|, and in float64 V itself
-    (max |V - V_ref| is logged for float32). At ``EIG_TIMED`` the kernel
-    (``launch_ms`` and ``device_ms``), its plain version and
-    ``eig_library`` are timed and bounded, and the torch part of the
-    amortized projection before the kernel (``eigh.amortized_rotate``) is
-    timed beside them."""
+def once_ms(fn):
+    """(fn(), its CUDA-event time in ms): one call, no warm-up."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def eig_rows(device, label, name, shapes, timed, reps=20, plain_reps=3):
+    """A warm-started Jacobi kernel through its launcher
+    (``jacobi_eig.LAUNCHERS[name]``, the kernel of each side's
+    ``kernel_for``) against its plain version,
+    float32 and float64, at every (k, B) of ``shapes``, one warm case (V0
+    near W's eigenbasis, 2 sweeps) and one stale (V0 = I, 8 sweeps) each,
+    each of which the backend's staleness rule (``eigh.amortized_rotate``)
+    classes as such: P and V diag(V'XV) V' within ``TOL`` of max |X|, and in
+    float64 V itself (max |V - V_ref| is logged for float32). The plain
+    version runs once on the stack of a side's cases of one type and
+    regime: its rounds are elementwise over the matrices, so each gets the
+    bits it gets alone, and the run pays its ~60 torch launches a round
+    once; with ``plain_reps=0`` a timed case is left out of the stack, and
+    its one timed call (``once_ms``) is its reference. At the (k, B,
+    dtype) of ``timed`` the kernel's function
+    (``launch_ms`` and ``device_ms``; for jacobi_eig_large with its torch
+    reconstruction, ``eigh.sym_reconstruct``), its plain version on the
+    case alone and ``eig_library`` are timed and bounded, and the torch
+    part of the amortized projection before the kernel
+    (``eigh.amortized_rotate``) is timed beside them; with ``plain_reps=0``
+    the plain version is timed by that one call."""
     import torch
     from cosmo_tpu_torch.kernel_timing import device_ms, launch_ms
     from cosmo_tpu_torch.ops import eigh as E
     from cosmo_tpu_torch.ops import jacobi_eig as JE
 
+    launch = JE.LAUNCHERS[name]
     rows = []
-    shapes = [(k, B) for k in EIG_SIDES for B in EIG_BATCHES] + [(8, 8540)]
-    for dtype_name in ("float32", "float64"):
-        dtype = getattr(torch, dtype_name)
-        tol = TOL[dtype_name]
-        for k, B in shapes:
-            for warm in (True, False):
-                X, W, V0 = eig_case(B, k, warm, dtype, device, seed=1000 * k + B + warm)
-                stale = E.amortized_rotate(X, V0)[2]
-                if bool(stale) == warm:
-                    raise AssertionError(f"10a: the staleness rule calls the warm={warm} "
-                                         f"case at k={k}, B={B} the other")
+    sides = {}
+    for k, B in shapes:
+        sides.setdefault(k, []).append(B)
+    for k, batches in sides.items():
+        if JE.kernel_for(k) != name:
+            raise AssertionError(f"{label}: k={k} goes to {JE.kernel_for(k)}")
+        for warm in (True, False):
+            arrays = [eig_case(B, k, warm, seed=1000 * k + B + warm) for B in batches]
+            for dtype_name in ("float32", "float64"):
+                dtype = getattr(torch, dtype_name)
+                tol = TOL[dtype_name]
+                cases = [tuple(torch.as_tensor(np.array(a, order="C"), dtype=dtype,
+                                               device=device) for a in case)
+                         for case in arrays]
+                stales = [E.amortized_rotate(X, V0)[2] for X, _, V0 in cases]
+                for B, stale in zip(batches, stales):
+                    if bool(stale) == warm:
+                        raise AssertionError(f"{label}: the staleness rule calls the "
+                                             f"warm={warm} case at k={k}, B={B} the other")
+                alone = [(k, B, dtype_name) in timed and not plain_reps for B in batches]
+                stacked = [c for c, a in zip(cases, alone) if not a]
+                if stacked:
+                    P_all, V_all = JE.jacobi_eig_plain(
+                        torch.cat([c[1] for c in stacked]),
+                        torch.cat([c[2] for c in stacked]), stales[0], WARM_SWEEPS, SWEEPS)
                 sweeps = WARM_SWEEPS if warm else SWEEPS
+                start = 0
+                for B, (X, W, V0), stale, own in zip(batches, cases, stales, alone):
 
-                def kernel():
-                    return JE.jacobi_eig_cuda(W, V0, stale, WARM_SWEEPS, SWEEPS)
+                    def kernel():
+                        return launch(W, V0, stale, WARM_SWEEPS, SWEEPS)
 
-                def plain():
-                    return JE.jacobi_eig_plain(W, V0, stale, WARM_SWEEPS, SWEEPS)
+                    def plain():
+                        return JE.jacobi_eig_plain(W, V0, stale, WARM_SWEEPS, SWEEPS)
 
-                got = kernel()
-                torch.cuda.synchronize()
-                dP, dV, dR = eig_diffs(X, got, plain())
-                scale = X.abs().max().item()
-                ok = all(np.isfinite((dP, dV, dR))) and dP <= tol * scale and (
-                    dR <= tol * scale) and (dtype_name == "float32" or dV <= tol * scale)
-                timed = (k, B) in EIG_TIMED
-                bound_ms, bound_by = eig_bound_ms(B, k, dtype_name, sweeps)
-                row = dict(kernel="jacobi_eig", dtype=dtype_name, k=k, B=B, sweeps=sweeps,
-                           max_abs_err=max(dP, dR) if dtype_name == "float32"
-                           else max(dP, dV, dR), max_abs_err_P=dP, max_abs_err_V=dV,
-                           max_abs_err_rec=dR, max_abs_x=scale, tol_rel=tol, ok=ok,
-                           bound_ms=bound_ms, bound_by=bound_by,
-                           ms=launch_ms(kernel, reps) if timed else None,
-                           device_ms=device_ms(kernel, reps) if timed else None,
-                           plain_ms=launch_ms(plain, 3) if timed else None,
-                           library_ms=(launch_ms(lambda: eig_library(W, V0), reps)
-                                       if timed else None),
-                           rotate_ms=(launch_ms(lambda: E.amortized_rotate(X, V0), reps)
-                                      if timed else None))
-                rows.append(row)
-                times = ("" if not timed else
-                         f" ms={row['ms']:.4f} device={row['device_ms']:.4f} plain="
-                         f"{row['plain_ms']:.3f} eigh={row['library_ms']:.3f} (torch "
-                         f"rotation before the kernel {row['rotate_ms']:.4f})")
-                log(f"[backends] jacobi_eig {dtype_name} k={k:2d} B={B:5d} sweeps={sweeps} "
-                    f"err P {dP:.3e} V {dV:.3e} V diag(V'XV) V' {dR:.3e} (tol {tol:.0e}*"
-                    f"{scale:.2f}){times} bound={bound_ms:.5f} ({bound_by}) "
-                    f"{'ok' if ok else 'FAIL'}")
+                    if own:
+                        ref, plain_ms = once_ms(plain)
+                    else:
+                        ref = P_all[start:start + B], V_all[start:start + B]
+                        start += B
+                    got = kernel()
+                    torch.cuda.synchronize()
+                    dP, dV, dR = eig_diffs(X, got, ref)
+                    scale = X.abs().max().item()
+                    ok = all(np.isfinite((dP, dV, dR))) and dP <= tol * scale and (
+                        dR <= tol * scale) and (dtype_name == "float32"
+                                                or dV <= tol * scale)
+                    is_timed = (k, B, dtype_name) in timed
+                    if not is_timed:
+                        plain_ms = None
+                    elif plain_reps:
+                        plain_ms = launch_ms(plain, plain_reps)
+                    bound_ms, bound_by = eig_bound_ms(B, k, dtype_name, sweeps)
+                    row = dict(
+                        kernel=name, dtype=dtype_name, k=k, B=B, sweeps=sweeps,
+                        max_abs_err=max(dP, dR) if dtype_name == "float32"
+                        else max(dP, dV, dR), max_abs_err_P=dP, max_abs_err_V=dV,
+                        max_abs_err_rec=dR, max_abs_x=scale, tol_rel=tol, ok=ok,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        ms=launch_ms(kernel, reps) if is_timed else None,
+                        device_ms=device_ms(kernel, reps) if is_timed else None,
+                        plain_ms=plain_ms,
+                        library_ms=(launch_ms(lambda: eig_library(W, V0), reps)
+                                    if is_timed else None),
+                        rotate_ms=(launch_ms(lambda: E.amortized_rotate(X, V0), reps)
+                                   if is_timed else None))
+                    rows.append(row)
+                    times = ("" if not is_timed else
+                             f" ms={row['ms']:.4f} device={row['device_ms']:.4f} plain="
+                             f"{row['plain_ms']:.3f} eigh={row['library_ms']:.3f} (torch "
+                             f"rotation before the kernel {row['rotate_ms']:.4f})")
+                    log(f"[backends] {name} {dtype_name} k={k:3d} B={B:5d} sweeps={sweeps} "
+                        f"err P {dP:.3e} V {dV:.3e} V diag(V'XV) V' {dR:.3e} (tol "
+                        f"{tol:.0e}*{scale:.2f}){times} bound={bound_ms:.5f} ({bound_by}) "
+                        f"{'ok' if ok else 'FAIL'}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
-        raise AssertionError(f"jacobi_eig disagrees with its plain version: {bad}")
+        raise AssertionError(f"{name} disagrees with its plain version: {bad}")
     return rows
+
+
+def phase_eig_kernel(device):
+    """10a: the warm-started Jacobi kernel of sides 4..48 (jacobi_eig) at
+    every shape of ``EIG_SIDES`` by ``EIG_BATCHES`` and [8540, 8], timed at
+    ``EIG_TIMED`` (``eig_rows``)."""
+    shapes = [(k, B) for k in EIG_SIDES for B in EIG_BATCHES] + [(8, 8540)]
+    timed = {(k, B, d) for k, B in EIG_TIMED for d in ("float32", "float64")}
+    return eig_rows(device, "10a", "jacobi_eig", shapes, timed)
+
+
+def phase_eig_large_kernel(device):
+    """10e: the warm-started Jacobi kernel of side 2 and the sides above 48
+    (jacobi_eig_large) at every side of ``LARGE_SIDES`` at B in {1, 8} (B =
+    1 at 896), timed at ``LARGE_TIMED`` (``eig_rows``; the plain version at
+    896 runs ~140,000 torch launches in 8 sweeps, ~7 s, so it is timed by
+    one call, which is also the timed case's reference)."""
+    shapes = [(k, B) for k in LARGE_SIDES for B in ((1,) if k == 896 else (1, 8))]
+    return eig_rows(device, "10e", "jacobi_eig_large", shapes, set(LARGE_TIMED),
+                    plain_reps=0)
+
+
+def sync_debug_solve(model, label):
+    """A second solve of ``model`` under
+    ``torch.cuda.set_sync_debug_mode("warn")``: the synchronizing calls torch
+    flags beyond the solver's own host waits, an iteration (a host read of
+    a projection's sweep count would add one each). Returns (result,
+    facts)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = model.optimize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    flagged = sum("synchroniz" in str(w.message) for w in caught)
+    extra = (flagged - model.last_solve["syncs"]) / max(res.iter, 1)
+    log(f"[backends] {label} under sync debug: {res.status}, {res.iter} iters, "
+        f"torch-flagged synchronizing calls {flagged}, solver host waits "
+        f"{model.last_solve['syncs']}: {extra:.4f} flagged an iteration beyond the "
+        f"solver's (limit 0.1)")
+    return res, dict(sync_debug_iter=res.iter, flagged_syncs=flagged,
+                     sync_debug_solver_syncs=model.last_solve["syncs"],
+                     flagged_beyond_solver_per_iter=extra)
 
 
 def phase_amortized(device, smi):
@@ -1472,9 +1642,6 @@ def phase_amortized(device, smi):
     under ``torch.cuda.set_sync_debug_mode("warn")``: the synchronizing
     calls torch flags beyond the solver's own host waits stay under 0.1 an
     iteration (a host read of the sweep count would add one each)."""
-    import warnings
-
-    import torch
     import cosmo_tpu_torch as pt
     from cosmo_tpu_torch import problems
     from cosmo_tpu_torch.ops import jacobi_eig as JE
@@ -1485,7 +1652,7 @@ def phase_amortized(device, smi):
                            eigh_backend="amortized")
     model = pt.Model(settings, device=device).set(*data)
     res, counts = counted_optimize(model)
-    n_full = JE.full_sweep_count(device)
+    n_full = sum(JE.full_sweep_counts(device).values())
     info, t = model.last_solve, res.times
     err = abs(res.obj_val - REF_BANDED) / abs(REF_BANDED)
     launches = counts["jacobi_eig"]
@@ -1506,26 +1673,12 @@ def phase_amortized(device, smi):
     if res.status != "Solved" or not err <= 1e-6:
         raise AssertionError(f"10b: {res.status}, obj {res.obj_val}")
     if (info["bucket_backends"] != ("amortized",) or info["kkt_solver"] != "blockdiag"
-            or not launches == info["projections"] > 0
+            or not launches == info["projections"] > 0 or counts["jacobi_eig_large"]
             or counts["jacobi_proj"] or counts["jacobi_proj_rr"]):
         raise AssertionError(f"10b left its path: {info}, {counts}")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            res2 = model.optimize()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    flagged = sum("synchroniz" in str(w.message) for w in caught)
-    extra = (flagged - model.last_solve["syncs"]) / max(res2.iter, 1)
-    out.update(sync_debug_iter=res2.iter, flagged_syncs=flagged,
-               sync_debug_solver_syncs=model.last_solve["syncs"],
-               flagged_beyond_solver_per_iter=extra)
-    log(f"[backends] 10b under sync debug: {res2.status}, {res2.iter} iters, "
-        f"torch-flagged synchronizing calls {flagged}, solver host waits "
-        f"{model.last_solve['syncs']}: {extra:.4f} flagged an iteration beyond the "
-        f"solver's (limit 0.1)")
-    if res2.status != "Solved" or not extra < 0.1:
+    res2, facts = sync_debug_solve(model, "10b")
+    out.update(facts)
+    if res2.status != "Solved" or not facts["flagged_beyond_solver_per_iter"] < 0.1:
         raise AssertionError(f"10b sync debug: {res2.status}, {out}")
     return out
 
@@ -1581,16 +1734,161 @@ def phase_examples(device):
     return seconds
 
 
+def phase_block8x256_amortized(device, smi):
+    """10f: block_sdp(8, 256, 256) at ``REF_BLOCK8X256``'s plain settings in
+    float64 with eigh_backend="amortized" (``BLOCK8X256_AMORTIZED``): Solved
+    within 1e-6 of ``REF_BLOCK8X256``, its one [8, 256] bucket through
+    jacobi_eig_large on every projection and no other Jacobi kernel; the
+    device tally of full-sweep launches read once at the end; a second
+    solve under sync debug (``sync_debug_solve``) flags under 0.1
+    synchronizing calls an iteration beyond the solver's host waits."""
+    import scipy.sparse as sp
+    import cosmo_tpu_torch as pt
+    from cosmo_tpu_torch import problems
+    from cosmo_tpu_torch.ops import jacobi_eig as JE
+
+    P, q, A, b, sets = problems.block_sdp(n_blocks=8, side=256, n=256, seed=0)
+    model = pt.Model(pt.Settings(**BLOCK8X256_AMORTIZED), device=device).set(
+        P, q, sp.csr_matrix(A), b, sets)
+    res, counts = counted_optimize(model)
+    n_full = sum(JE.full_sweep_counts(device).values())
+    info = model.last_solve
+    err = abs(res.obj_val - REF_BLOCK8X256) / abs(REF_BLOCK8X256)
+    launches = counts["jacobi_eig_large"]
+    buckets = [(b.batch, b.side) for b in model._dev_cache["cones"].psd_buckets]
+    out = dict(status=res.status, iter=res.iter, obj=res.obj_val, rel_err=err,
+               setup_s=res.times.setup_time, solve_s=info["iter_time"],
+               iter_per_s=res.iter / info["iter_time"], launches=launches,
+               full_sweep_launches=n_full, projections=info["projections"],
+               syncs=info["syncs"], buckets=buckets, counts=counts)
+    log(f"[backends] 10f block_sdp(8,256,256) float64 amortized: {res.status}, "
+        f"{res.iter} iters, obj {res.obj_val:.13f} (rel err {err:.2e} of "
+        f"{REF_BLOCK8X256}, limit 1e-06), setup {res.times.setup_time:.3f} s, solve "
+        f"{info['iter_time']:.3f} s, {out['iter_per_s']:.2f} iter/s, PSD buckets "
+        f"{buckets} {info['bucket_backends']}, jacobi_eig_large launches {launches} "
+        f"({n_full} full sweeps) / projections {info['projections']}, kernels {counts}, "
+        f"solver host waits {info['syncs']} [{smi}]")
+    if res.status != "Solved" or not err <= 1e-6:
+        raise AssertionError(f"10f: {res.status}, obj {res.obj_val}")
+    if (buckets != [(8, 256)] or info["bucket_backends"] != ("amortized",)
+            or not launches == info["projections"] > 0
+            or any(n for name, n in counts.items() if name != "jacobi_eig_large")):
+        raise AssertionError(f"10f left its path: {info}, {counts}")
+    res2, facts = sync_debug_solve(model, "10f")
+    out.update(facts)
+    if res2.status != "Solved" or not facts["flagged_beyond_solver_per_iter"] < 0.1:
+        raise AssertionError(f"10f sync debug: {res2.status}, {out}")
+    return out
+
+
+def phase_maxcut_amortized(device, smi):
+    """10g: maxcut-10k at ``_bench_maxcut10k``'s settings with plain ADMM and
+    eigh_backend="amortized" in float32 for a fixed 100 iterations
+    (``MAXCUT10K_AMORTIZED``): every PSD bucket amortized, each logged with
+    the kernel its side takes, the [1, 896] colpad bucket through
+    jacobi_eig_large on every projection, x, y and s finite. The [1, 896]
+    bucket's (X, V_prev) is kept at each of its projections (a wrapper
+    around ``jacobi_eig.psd_project_amortized`` for this run). The first
+    projection and the first later one of each regime (full sweeps, warm)
+    are held, kernel against plain version, to 10e's limits: a stale
+    projection and a later warm one must both be among them, and
+    the bucket's device tally of full-sweep launches (read once, after the
+    solve) must count the stale ones. The first projection starts from the identity
+    basis but need not be stale: the rule then reads W = X, and maxcut's
+    first X has under 9% of its energy off the diagonal (it was warm on an
+    H100)."""
+    import torch
+    import cosmo_tpu_torch as pt
+    from cosmo_tpu_torch import problems
+    from cosmo_tpu_torch.ops import eigh as E
+    from cosmo_tpu_torch.ops import jacobi_eig as JE
+
+    P, q, A, b, sets, _ = problems.maxcut(10000, 4.0 / 10000, seed=0, sparse=True)
+    model = pt.Model(pt.Settings(**MAXCUT10K_AMORTIZED), device=device).set(
+        P, q, A, b, sets)
+    original, captured = JE.psd_project_amortized, []
+
+    def capturing(X, V_prev, *args, **kwargs):
+        if X.shape[-1] == 896:
+            captured.append((X.clone(), V_prev.clone()))
+        return original(X, V_prev, *args, **kwargs)
+
+    # the wrapped function counts into the module's name, the wrapper
+    capturing.launches = original.launches
+    JE.psd_project_amortized = capturing
+    try:
+        res, counts = counted_optimize(model)
+        launches = dict(capturing.launches)
+    finally:
+        JE.psd_project_amortized = original
+        original.launches = capturing.launches
+    info, cones = model.last_solve, model._dev_cache["cones"]
+    buckets = [(b.batch, b.side, b.fastpath, JE.kernel_for(b.side))
+               for b in cones.psd_buckets]
+    key896 = ("jacobi_eig_large", 896, "float32")
+    n896, full896 = launches.get(key896, 0), JE.full_sweep_counts(device).get(key896, 0)
+    finite = all(bool(np.isfinite(getattr(res, a)).all()) for a in ("x", "y", "s"))
+    out = dict(status=res.status, iter=res.iter, setup_s=res.times.setup_time,
+               graph_s=res.times.graph_time, solve_s=info["iter_time"],
+               iter_per_s=res.iter / info["iter_time"], projections=info["projections"],
+               counts=counts, launches_896=n896, full_sweep_launches_896=full896,
+               buckets=buckets, finite=finite,
+               bucket_backends=info["bucket_backends"])
+    log(f"[backends] 10g maxcut-10000 float32 amortized: {res.status}, {res.iter} "
+        f"iters, graph {res.times.graph_time:.3f} s, setup {res.times.setup_time:.3f} s, "
+        f"solve {info['iter_time']:.3f} s, {out['iter_per_s']:.2f} iter/s, x, y, s "
+        f"finite {finite}, kernels {counts}, [1, 896] launches {n896} ({full896} full "
+        f"sweeps) / projections {info['projections']} [{smi}]")
+    log(f"[backends] 10g PSD buckets (B, side, layout, kernel): {buckets}")
+    if (cones.eigh_backend != "amortized" or set(info["bucket_backends"]) != {"amortized"}
+            or (1, 896, "colpad", "jacobi_eig_large") not in buckets
+            or not n896 == len(captured) == info["projections"] > 0 or not finite
+            or counts["jacobi_proj"] or counts["jacobi_proj_rr"]):
+        raise AssertionError(f"10g left its path: {out}")
+    # the captured projections, kernel against plain version
+    held = []
+    for n, (X, V_prev) in enumerate(captured):
+        W, V0, stale = E.amortized_rotate(X, V_prev)
+        is_stale = bool(stale)
+        if n > 0 and is_stale in [h["stale"] for h in held[1:]]:
+            continue
+        got = JE.jacobi_eig_large_cuda(W, V0, stale, WARM_SWEEPS, SWEEPS)
+        torch.cuda.synchronize()
+        dP, dV, dR = eig_diffs(X, got, JE.jacobi_eig_plain(W, V0, stale, WARM_SWEEPS,
+                                                             SWEEPS))
+        scale = X.abs().max().item()
+        ok = all(np.isfinite((dP, dR))) and max(dP, dR) <= TOL["float32"] * scale
+        held.append(dict(projection=n, stale=is_stale, max_abs_err_P=dP,
+                         max_abs_err_V=dV, max_abs_err_rec=dR, max_abs_x=scale, ok=ok))
+        log(f"[backends] 10g [1, 896] projection {n} ({'stale' if is_stale else 'warm'}):"
+            f" kernel against plain err P {dP:.3e} V {dV:.3e} V diag(V'XV) V' {dR:.3e} "
+            f"(tol 1e-04*{scale:.2f}) {'ok' if ok else 'FAIL'}")
+        if len(held) == 3:
+            break
+    out["held"] = held
+    stales = [h["stale"] for h in held]
+    if (True not in stales or False not in stales[1:] or not all(h["ok"] for h in held)
+            or sum(stales) > full896):
+        raise AssertionError(f"10g: the captured projections {held}, {full896} of "
+                             f"{n896} launches at full sweeps")
+    return out
+
+
 def phase_backends(device, smi):
-    """10a-10d."""
+    """10a-10g."""
     out = {}
     for name, run in (("eig_kernel", lambda: phase_eig_kernel(device)),
                       ("amortized", lambda: phase_amortized(device, smi)),
                       ("jacobi_mm", lambda: phase_jacobi_mm(device, smi)),
-                      ("examples", lambda: phase_examples(device))):
+                      ("examples", lambda: phase_examples(device)),
+                      ("eig_large_kernel", lambda: phase_eig_large_kernel(device)),
+                      ("block8x256_amortized",
+                       lambda: phase_block8x256_amortized(device, smi)),
+                      ("maxcut_amortized", lambda: phase_maxcut_amortized(device, smi))):
         t = time.perf_counter()
         out[name] = run()
         out[f"{name}_s"] = time.perf_counter() - t
+        log(f"[time] backends {name} {out[f'{name}_s']:.1f} s")
     return out
 
 
@@ -1617,7 +1915,8 @@ def _mesh_solve(model, mesh, out_dir, label, rank, save):
     res = model.optimize(mesh=mesh)
     counts = {"jacobi_proj": J.psd_project_pallas.launches,
               "jacobi_proj_rr": R.psd_project_rr.launches,
-              "jacobi_eig": sum(JE.psd_project_amortized.launches.values())}
+              "jacobi_eig": JE.launches_of("jacobi_eig"),
+              "jacobi_eig_large": JE.launches_of("jacobi_eig_large")}
     info, cones = model.last_solve, model._dev_cache["cones"]
     if save:
         for name in ("x", "s"):
@@ -1826,6 +2125,7 @@ def main(argv=None):
         t = time.perf_counter()
         out = run()
         seconds[name] = time.perf_counter() - t
+        log(f"[time] {name} {seconds[name]:.1f} s")
         return out
 
     kernel_rows = timed("kernel", lambda: phase_kernel(device) + phase_cone_kernel(device))
@@ -1915,6 +2215,30 @@ def main(argv=None):
             shape=dict(B=2498, k=16, dtype="float64", sweeps=sweeps),
             path="banded_amortized", plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    # the large-side kernel at 10f's [8, 256] float64 bucket and at 10g's
+    # [1, 896] float32 colpad bucket: one row at the warm sweeps with the
+    # path's warm launches on the bucket, one at the full sweeps with its
+    # full-sweep launches (the bucket's device tally)
+    block, mc = backends["block8x256_amortized"], backends["maxcut_amortized"]
+    mc_path = "maxcut-10000 amortized, 100 iterations"
+    for k, B, dtype_name, sweeps, launches, path in (
+            (256, 8, "float64", WARM_SWEEPS,
+             block["launches"] - block["full_sweep_launches"], "block_sdp_8x256_amortized"),
+            (256, 8, "float64", SWEEPS, block["full_sweep_launches"],
+             "block_sdp_8x256_amortized"),
+            (896, 1, "float32", WARM_SWEEPS,
+             mc["launches_896"] - mc["full_sweep_launches_896"], mc_path),
+            (896, 1, "float32", SWEEPS, mc["full_sweep_launches_896"], mc_path)):
+        row = next(r for r in backends["eig_large_kernel"] if r["dtype"] == dtype_name
+                   and r["k"] == k and r["B"] == B and r["sweeps"] == sweeps)
+        kernels.append(dict(
+            name="jacobi_eig_large", route="cuda",
+            source="cosmo_tpu_torch/csrc/jacobi_eig_large.cu",
+            replaces="cosmo_tpu/ops/eigh.py:266", launches=launches,
+            max_abs_err=row["max_abs_err"], ms=row["ms"], device_ms=row["device_ms"],
+            shape=dict(B=B, k=k, dtype=dtype_name, sweeps=sweeps), path=path,
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"]))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

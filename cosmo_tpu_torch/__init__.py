@@ -17,9 +17,10 @@ sparse input through the dense, block-diagonal or matrix-free CG/MINRES
 KKT solve, with chordal decomposition of sparse PSD constraints. Hand-written
 CUDA kernels carry the projections: the Jacobi PSD projection of small
 blocks (``ops/jacobi_proj.py``, ``csrc/jacobi_proj.cu``), its warm-started
-variant for the amortized backend, which carries each PSD bucket's
-eigenbasis across iterations (``ops/jacobi_eig.py``,
-``csrc/jacobi_eig.cu``), and the exponential and power cones'
+variants for the amortized backend, which carries each PSD bucket's
+eigenbasis across iterations (``ops/jacobi_eig.py``: ``csrc/jacobi_eig.cu``
+for sides 4..48, ``csrc/jacobi_eig_large.cu`` for side 2 and the sides
+above 48), and the exponential and power cones'
 (``ops/exp_pow_proj.py``, ``csrc/exp_pow_proj.cu``). The examples of the
 JAX package have their port in :mod:`.examples`
 (``python -m cosmo_tpu_torch.examples.lp [--device cpu]``).
@@ -28,9 +29,7 @@ A solve runs SPMD over ``torch.distributed`` through a device mesh
 (:mod:`.parallel`: ``Model.optimize(mesh=make_mesh())`` on every rank of a
 gloo or NCCL group).
 
-This package imports neither JAX nor ``cosmo_tpu``. What it does not port
-yet (on a CUDA device the amortized backend above side 48) raises
-``NotImplementedError`` naming the ROADMAP.md item that will.
+This package imports neither JAX nor ``cosmo_tpu``.
 """
 from .models.cones import (
     Box,

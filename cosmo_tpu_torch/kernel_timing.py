@@ -8,14 +8,17 @@ parent commit unpacked with ``git archive``. Each tree builds its own
 kernel sources into its own ``_build``; every kernel is then timed on the
 same inputs at the shapes of :data:`SHAPES`, in turns other, this, this,
 other, with both :func:`launch_ms` and :func:`device_ms`, and each line
-says whether the two trees' outputs are the same bits. Needs CUDA.
+says whether the two trees' outputs are the same bits: ``jacobi_proj``,
+``jacobi_proj_rr`` and ``jacobi_eig`` (from V0 = I, stale). Needs CUDA.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.machinery
 import importlib.util
 import statistics
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -70,10 +73,18 @@ def device_ms(fn, reps, rounds=3):
 
 
 def _other_cuda_build(root: Path):
-    """The other checkout's ``ops/cuda_build.py``, loaded from its file."""
-    path = root / "cosmo_tpu_torch" / "ops" / "cuda_build.py"
-    spec = importlib.util.spec_from_file_location("other_cuda_build", path)
+    """The other checkout's ``ops/cuda_build.py``, loaded from its file as a
+    module of a package ``_other_ops`` over that checkout's ``ops/``, so
+    that its relative imports (``from .eigh import ...``) load the other
+    checkout's modules and not the package's own."""
+    ops = root / "cosmo_tpu_torch" / "ops"
+    package = importlib.machinery.ModuleSpec("_other_ops", None, is_package=True)
+    package.submodule_search_locations = [str(ops)]
+    sys.modules["_other_ops"] = importlib.util.module_from_spec(package)
+    spec = importlib.util.spec_from_file_location("_other_ops.cuda_build",
+                                                  ops / "cuda_build.py")
     module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
     spec.loader.exec_module(module)
     return module
 
@@ -86,6 +97,22 @@ def _load(builder, name):
     return builder.load_jacobi(builder.CSRC / f"{name}.cu", name)
 
 
+def _launch_eig(lib, X, pairs):
+    """jacobi_eig of a tree's library on W = X from V0 = I with the stale
+    flag set (``SWEEPS`` sweeps): P and V stacked."""
+    B, k, _ = X.shape
+    P, V = torch.empty_like(X), torch.empty_like(X)
+    V0 = torch.eye(k, dtype=X.dtype, device=X.device).expand(B, k, k).contiguous()
+    stale = torch.ones((), dtype=torch.bool, device=X.device)
+    fn = lib.jacobi_eig_f32 if X.dtype == torch.float32 else lib.jacobi_eig_f64
+    err = fn(X.data_ptr(), V0.data_ptr(), P.data_ptr(), V.data_ptr(), pairs.data_ptr(),
+             stale.data_ptr(), 2, SWEEPS, None, B, k,
+             torch.cuda.current_stream(X.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"jacobi_eig kernel launch failed: CUDA error {err}")
+    return torch.cat((P, V))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", required=True, help="root of the other checkout")
@@ -94,7 +121,8 @@ def main(argv=None):
         raise SystemExit("kernel_timing needs a CUDA device")
     other = _other_cuda_build(Path(args.other).resolve())
     kernels = {}
-    for name, tables in (("jacobi_proj", J._schedule_on), ("jacobi_proj_rr", R._table_on)):
+    for name, tables in (("jacobi_proj", J._schedule_on), ("jacobi_proj_rr", R._table_on),
+                         ("jacobi_eig", J._schedule_on)):
         for tree, builder in (("other", other), ("this", cuda_build)):
             kernels[tree, name] = (builder, _load(builder, name), tables)
     card = subprocess.run(
@@ -109,13 +137,15 @@ def main(argv=None):
             G = np.random.default_rng(k * B).standard_normal((B, k, k))
             X = torch.as_tensor((G + G.swapaxes(1, 2)) / 2, dtype=dtype, device=device)
             line = f"k={k} B={B} {str(dtype).split('.')[1]}"
-            for name in ("jacobi_proj", "jacobi_proj_rr"):
+            for name in ("jacobi_proj", "jacobi_proj_rr", "jacobi_eig"):
                 launch, dev, outs = [], [], {}
                 for tree in ("other", "this", "this", "other"):
                     builder, lib, tables = kernels[tree, name]
                     pairs = tables(k, device)
 
                     def fn():
+                        if name == "jacobi_eig":
+                            return _launch_eig(lib, X, pairs)
                         return builder.launch_jacobi(lib, name, X, pairs, SWEEPS)
 
                     reps = 10 if k >= 32 else 20

@@ -34,7 +34,6 @@ import numpy as np
 import torch
 
 from ..models import cones as C
-from .eigh import kernel_takes
 from .linops import to_device as _array_to_device
 
 SQRT2 = np.sqrt(2.0)
@@ -48,15 +47,6 @@ GEOMETRIC_SIZES = (8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 320, 384, 448,
 # and of the auto rule that selects it
 AUTO_KERNEL_MAX_SIDE = 16
 AUTO_KERNEL_MIN_BATCH = 256
-
-
-def not_ported(what: str, item: str):
-    """The error for a feature this package does not have yet; ``item`` is
-    the deferred entry of ROADMAP.md Queue 1 that will port it."""
-    return NotImplementedError(
-        f"{what} is not ported to cosmo_tpu_torch yet "
-        f"(ROADMAP.md Queue 1, deferred: {item})"
-    )
 
 
 def pad_side(r: int, pad_to: int = 8) -> int:
@@ -269,9 +259,9 @@ def compile_cones(sets: List[C.ConvexSet], dtype=np.float64, psd_pad_to: int = 8
     """Build the batched cone representation (numpy arrays) from an ordered
     cone list. ``device`` is where the solve will run (None: ``cuda``): the
     ``"auto"`` backend resolves for it (:func:`resolve_eigh_backend`).
-    ``"amortized"`` on a CUDA device takes the sides of its Jacobi kernel
-    (even 4..48, ``ops/jacobi_eig.py``) and raises for a bucket of another
-    side; the CPU takes every side through the plain version."""
+    ``"amortized"`` takes every side on either device
+    (``ops/jacobi_eig.kernel_for`` says which kernel takes it on a CUDA
+    device)."""
 
     m = sum(s.dim for s in sets)
     DUMP = m
@@ -388,11 +378,6 @@ def compile_cones(sets: List[C.ConvexSet], dtype=np.float64, psd_pad_to: int = 8
     requested = eigh_backend
     eigh_backend = resolve_eigh_backend(eigh_backend, psd_buckets, accel_on,
                                         decomposed, device)
-    if eigh_backend == "amortized" and _on_cuda(device):
-        for b in psd_buckets:
-            if not kernel_takes(b.side):
-                raise not_ported(f"eigh_backend='amortized' on a PSD bucket of side "
-                                 f"{b.side} on a CUDA device", "amortized above side 48")
     if (
         requested == "auto"
         and eigh_backend == "polar"

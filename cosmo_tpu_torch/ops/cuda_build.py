@@ -32,10 +32,11 @@ BUILD_DIR = _PKG / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the Jacobi kernels' library: the round-robin and the slot-rotation
-# schedules' C entries, the warm-started eigendecomposition's, and the
-# shared-memory body all three use
+# schedules' C entries, the warm-started eigendecomposition's, the
+# shared-memory body all three use, and the warm-started
+# eigendecomposition of the large sides
 JACOBI_SOURCES = ("jacobi_proj.cu", "jacobi_proj_rr.cu", "jacobi_eig.cu",
-                  "jacobi_smem.cu")
+                  "jacobi_smem.cu", "jacobi_eig_large.cu")
 JACOBI_ENTRIES = ("jacobi_proj", "jacobi_proj_rr")
 # the exp/pow cone projection's library: one source, one entry a family
 EXP_POW_SOURCES = ("exp_pow_proj.cu",)
@@ -125,15 +126,20 @@ def jacobi_library() -> ctypes.CDLL:
     pairs, int B, int k, int sweeps, void* stream)``; ``jacobi_eig_f32`` and
     ``jacobi_eig_f64`` are ``int f(const T* w, const T* v0, T* p, T* v,
     const uint8_t* pairs, const uint8_t* stale, int warm, int full, int*
-    n_full, int B, int k, void* stream)``. Each returns
-    ``cudaGetLastError()``."""
+    n_full, int B, int k, void* stream)``; ``jacobi_eig_large_f32`` and
+    ``jacobi_eig_large_f64`` are ``int f(const T* w, const T* v0, T* d, T*
+    v, T* scratch, const uint16_t* pairs, const uint8_t* stale, int warm,
+    int full, int* n_full, int B, int k, void* stream)``. Each returns
+    ``cudaGetLastError()`` (or the launch's error)."""
     lib = ctypes.CDLL(str(build_jacobi()))
     p, i = ctypes.c_void_p, ctypes.c_int
     for t in ("f32", "f64"):
         for prefix in JACOBI_ENTRIES:
             getattr(lib, f"{prefix}_{t}").argtypes = [p, p, p, i, i, i, p]
         getattr(lib, f"jacobi_eig_{t}").argtypes = [p, p, p, p, p, p, i, i, p, i, i, p]
-        for prefix in (*JACOBI_ENTRIES, "jacobi_eig"):
+        getattr(lib, f"jacobi_eig_large_{t}").argtypes = [p, p, p, p, p, p, p, i, i, p,
+                                                          i, i, p]
+        for prefix in (*JACOBI_ENTRIES, "jacobi_eig", "jacobi_eig_large"):
             getattr(lib, f"{prefix}_{t}").restype = i
     return lib
 

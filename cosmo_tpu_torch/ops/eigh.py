@@ -185,7 +185,11 @@ KERNEL_MAX_SIDE = 48
 
 
 def kernel_takes(k: int) -> bool:
-    """The reference wrapper's domain rule: even k in [4, 48]."""
+    """The reference wrapper's domain rule: even k in [4, 48], the sides of
+    the Jacobi kernels ``jacobi_proj``, ``jacobi_proj_rr`` and
+    ``jacobi_eig``. The amortized backend's other kernel,
+    ``jacobi_eig_large``, takes side 2 and the even sides above 48
+    (``jacobi_eig.large_kernel_takes``)."""
     return k % 2 == 0 and KERNEL_MIN_SIDE <= k <= KERNEL_MAX_SIDE
 
 
@@ -229,12 +233,32 @@ def psd_project_amortized(X, V_prev, warm_sweeps: int = 2, full_sweeps: int = 8,
 
 def jacobi_eig_plain(W, V0, stale, warm: int, full: int, method: str = "vec"):
     """The Jacobi part of the amortized projection, the function of the
-    kernel ``jacobi_eig``: ``full`` sweeps on W from the basis V0 when
-    ``stale`` (read on the host), else ``warm``. Returns (0.5 (P + P'), V)
-    with P = V max(w, 0) V'."""
+    kernels ``jacobi_eig`` and ``jacobi_eig_large``: ``full`` sweeps on W
+    from the basis V0 when ``stale`` (read on the host), else ``warm``.
+    Returns (0.5 (P + P'), V) with P = V max(w, 0) V'. An odd side takes
+    the reference's branch, :func:`amortized_eigh`, and ``stale`` is not
+    read."""
+    if W.shape[-1] % 2:
+        return amortized_eigh(W)
     w, V = jacobi_eigh(W, full if bool(stale) else warm, method, V0=V0)
+    return sym_reconstruct(w, V), V
+
+
+def amortized_eigh(W):
+    """The amortized projection's Jacobi part at an odd side, as the
+    reference computes it: ``jacobi_eigh`` sends an odd k to eigh, which
+    ignores V0 (``cosmo_tpu/ops/eigh.py:188-190``), so P is the projection
+    of W = V'XV itself, not V Pi(W) V', and the carried basis becomes W's
+    eigenvectors (ROADMAP Queue 3, "Known, by design"). Returns
+    (0.5 (P + P'), V)."""
+    w, V = torch.linalg.eigh(W)
+    return sym_reconstruct(w, V), V
+
+
+def sym_reconstruct(w, V):
+    """0.5 (P + P') with P = V max(w, 0) V'."""
     P = psd_reconstruct(w, V)
-    return 0.5 * (P + P.transpose(-1, -2)), V
+    return 0.5 * (P + P.transpose(-1, -2))
 
 
 def min_max_eig_jacobi(X, sweeps: int = 8, method: str = "vec"):

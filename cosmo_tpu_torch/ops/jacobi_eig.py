@@ -1,4 +1,4 @@
-"""The amortized PSD projection: the warm-started Jacobi kernel, its plain
+"""The amortized PSD projection: the warm-started Jacobi kernels, their plain
 PyTorch version, and the wrapper the projection calls.
 
 ``cosmo_tpu.ops.eigh.psd_project_amortized`` carries each PSD bucket's
@@ -6,31 +6,44 @@ eigenbasis across ADMM iterations: it rotates W = V'XV in the
 re-orthonormalised basis, then runs 2 Jacobi sweeps from it, or the full
 sweeps when a block's off-diagonal mass says the basis went stale. The
 sweep count is a traced scalar of a ``lax.fori_loop``. Here the torch part
-(``eigh.amortized_rotate``) leaves the stale flag on the device, and the
-kernel (``csrc/jacobi_eig.cu``, the ``kEig`` instantiation of the design of
-``csrc/jacobi_rounds.cuh``) reads it there: the projection adds no host
-read.
+(``eigh.amortized_rotate``) leaves the stale flag on the device, and a
+kernel reads it there: the projection adds no host read. Which kernel
+takes a side (:func:`kernel_for`):
+
+* even 4..48 (``eigh.kernel_takes``): ``jacobi_eig`` (``csrc/jacobi_eig.cu``,
+  the ``kEig`` instantiation of the design of ``csrc/jacobi_rounds.cuh``,
+  a matrix in one warp), the reconstruction fused;
+* even k = 2 and every even k above 48 (:func:`large_kernel_takes`):
+  ``jacobi_eig_large`` (``csrc/jacobi_eig_large.cu``, W and V in global
+  memory, one cooperative launch with a grid barrier a round), then
+  P = V max(w, 0) V' as a batched product (``eigh.sym_reconstruct``);
+* an odd k: none. The reference's ``jacobi_eigh`` sends it to eigh, which
+  ignores V0 (``eigh.amortized_eigh``), and so does the wrapper, on either
+  device; the stale flag is not read.
 
 * :func:`psd_project_amortized` — the wrapper: on a CUDA device the torch
   rotation and one counted kernel launch; on the CPU the plain version
   ``eigh.psd_project_amortized``. Launches count in
-  ``psd_project_amortized.launches`` by (k, dtype name); the kernel itself
-  tallies its full-sweep launches on the device (:func:`full_sweep_count`
-  reads the tally once).
-* ``jacobi_eig_plain`` (``eigh.jacobi_eig_plain``) — the kernel's function
+  ``psd_project_amortized.launches`` by (kernel, k, dtype name); the
+  kernels tally their full-sweep launches on the device, one tally for
+  each of those keys (:func:`full_sweep_counts` reads them at once).
+* ``jacobi_eig_plain`` (``eigh.jacobi_eig_plain``) — the kernels' function
   in PyTorch: the Jacobi from V0 with the sweep count read on the host,
   then 0.5 (P + P'). The CPU tests hold it to the JAX function;
-  ``chip_smoke.py`` holds the kernel to it on the card.
+  ``chip_smoke.py`` holds each kernel to it on the card.
 
-The kernel takes the sides of ``eigh.kernel_takes`` (even 4..48); a
-CUDA tensor of another side, type or layout raises, and a build or launch
-error raises: nothing falls back.
+Each kernel has its launcher (``LAUNCHERS``: :func:`jacobi_eig_cuda`,
+:func:`jacobi_eig_large_cuda`), which checks its input once. A CUDA tensor
+of a side the launcher's kernel does not take, of another type or layout
+raises, and a build or launch error raises:
+nothing falls back.
 """
 from __future__ import annotations
 
 from collections import Counter
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 from . import cuda_build
@@ -38,10 +51,30 @@ from . import eigh as eigh_mod
 from .eigh import jacobi_eig_plain, kernel_takes  # noqa: F401
 from .jacobi_proj import pair_schedule
 
+# the large-side kernel's largest k: its uint16 pair table's labels
+LARGE_MAX_SIDE = 1 << 16
+
+
+def large_kernel_takes(k: int) -> bool:
+    """The sides of ``jacobi_eig_large``: even k = 2 and even k above the
+    small kernel's 48 (up to its pair table's 65,536)."""
+    return k % 2 == 0 and (k == 2 or eigh_mod.KERNEL_MAX_SIDE < k <= LARGE_MAX_SIDE)
+
+
+def kernel_for(k: int):
+    """The kernel that takes side ``k`` on a CUDA device: "jacobi_eig",
+    "jacobi_eig_large", or None (an odd k: the reference's eigh branch)."""
+    if kernel_takes(k):
+        return "jacobi_eig"
+    return "jacobi_eig_large" if large_kernel_takes(k) else None
+
 
 @lru_cache(maxsize=None)
-def _schedule_on(k: int, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(pair_schedule(k), device=device)
+def _schedule_on(k: int, device: torch.device, dtype=np.uint8) -> torch.Tensor:
+    table = pair_schedule(k, dtype)
+    # the uint16 table goes over as int16: the kernel reads the same bits
+    return torch.as_tensor(table if dtype == np.uint8 else table.view(np.int16),
+                           device=device)
 
 
 def _check(name, T, like):
@@ -52,25 +85,31 @@ def _check(name, T, like):
         raise ValueError(f"jacobi_eig: {name} must be contiguous")
 
 
-def jacobi_eig_cuda(W, V0, stale, warm: int, full: int, n_full=None):
-    """Launch the kernel on ``W`` and ``V0`` [B, k, k] (contiguous
-    float32/float64 CUDA tensors, kernel_takes(k)) on the current stream,
-    with ``stale`` a 0-d bool CUDA tensor; ``n_full``, an int32 CUDA tensor
-    of one element, counts the launches that ran the full sweeps (on the
-    device). Returns (P, V). Does not count launches."""
+def _check_inputs(name, takes, W, V0, stale, n_full):
     if W.device.type != "cuda":
-        raise ValueError(f"jacobi_eig_cuda needs a CUDA tensor, got {W.device}")
+        raise ValueError(f"{name} needs a CUDA tensor, got {W.device}")
     if W.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"jacobi_eig takes float32/float64, got {W.dtype}")
-    if W.dim() != 3 or W.shape[1] != W.shape[2] or not kernel_takes(W.shape[1]):
-        raise ValueError(f"jacobi_eig takes [B, k, k] with even 4 <= k <= 48, "
-                         f"got {tuple(W.shape)}")
+        raise ValueError(f"{name} takes float32/float64, got {W.dtype}")
+    if W.dim() != 3 or W.shape[1] != W.shape[2] or not takes(W.shape[1]):
+        raise ValueError(f"{name} does not take a stack of shape {tuple(W.shape)} "
+                         f"(kernel_for says which kernel takes a side)")
     _check("W", W, W)
     _check("V0", V0, W)
     if stale.device != W.device or stale.dtype != torch.bool or stale.numel() != 1:
         raise ValueError("jacobi_eig: stale must be one bool on W's device")
     if n_full is not None and (n_full.device != W.device or n_full.dtype != torch.int32):
         raise ValueError("jacobi_eig: n_full must be an int32 tensor on W's device")
+
+
+def jacobi_eig_cuda(W, V0, stale, warm: int, full: int, n_full=None):
+    """Launch ``jacobi_eig`` on ``W`` and ``V0`` [B, k, k] (contiguous
+    float32/float64 CUDA tensors of an even side 4..48, ``kernel_takes``)
+    on the current stream, with ``stale`` a 0-d bool CUDA tensor: ``full``
+    sweeps from V0 when it is set, else ``warm``, the reconstruction fused.
+    ``n_full``, an int32 CUDA tensor of one element, counts the launches
+    that ran the full sweeps (on the device). Returns (P, V). Does not
+    count launches."""
+    _check_inputs("jacobi_eig", kernel_takes, W, V0, stale, n_full)
     B, k, _ = W.shape
     P, V = torch.empty_like(W), torch.empty_like(W)
     if B == 0:
@@ -87,24 +126,64 @@ def jacobi_eig_cuda(W, V0, stale, warm: int, full: int, n_full=None):
     return P, V
 
 
-# the device tallies of full-sweep launches, one int32 a device
+def jacobi_eig_large_cuda(W, V0, stale, warm: int, full: int, n_full=None):
+    """Launch ``jacobi_eig_large`` on ``W`` and ``V0`` [B, k, k] (contiguous
+    float32/float64 CUDA tensors of side 2 or an even side above 48,
+    :func:`large_kernel_takes`) on the current stream: the sweeps of
+    :func:`jacobi_eig_cuda`, then P = V max(w, 0) V' from W's diagonal
+    after them as a batched product (``eigh.sym_reconstruct``). Returns
+    (P, V). Does not count launches."""
+    _check_inputs("jacobi_eig_large", large_kernel_takes, W, V0, stale, n_full)
+    B, k, _ = W.shape
+    w = torch.empty((B, k), dtype=W.dtype, device=W.device)
+    V = torch.empty_like(W)
+    if B == 0:
+        return torch.empty_like(W), V
+    scratch = torch.empty((2, B, k, k), dtype=W.dtype, device=W.device)
+    lib = cuda_build.jacobi_library()
+    fn = lib.jacobi_eig_large_f32 if W.dtype == torch.float32 else lib.jacobi_eig_large_f64
+    err = fn(W.data_ptr(), V0.data_ptr(), w.data_ptr(), V.data_ptr(), scratch.data_ptr(),
+             _schedule_on(k, W.device, np.uint16).data_ptr(), stale.data_ptr(),
+             int(warm), int(full), None if n_full is None else n_full.data_ptr(), B, k,
+             torch.cuda.current_stream(W.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"jacobi_eig_large kernel launch failed: CUDA error {err} "
+                           f"(B={B}, k={k}, {W.dtype})")
+    return eigh_mod.sym_reconstruct(w, V), V
+
+
+# kernel_for's name -> its launcher
+LAUNCHERS = {"jacobi_eig": jacobi_eig_cuda, "jacobi_eig_large": jacobi_eig_large_cuda}
+
+# the device tallies of full-sweep launches, one int32 for each key of
+# psd_project_amortized.launches on each device
 _N_FULL: dict = {}
 
 
-def _tally(device) -> torch.Tensor:
+def _device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    key = str(device)
-    if key not in _N_FULL:
-        _N_FULL[key] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _N_FULL[key]
+    return device
 
 
-def full_sweep_count(device="cuda") -> int:
-    """The kernel launches on ``device`` that ran the full sweeps since the
-    last :func:`reset_counts` (one host read)."""
-    return int(_tally(device).item())
+def _tally(key, device) -> torch.Tensor:
+    device = _device(device)
+    if (key, str(device)) not in _N_FULL:
+        _N_FULL[key, str(device)] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _N_FULL[key, str(device)]
+
+
+def full_sweep_counts(device="cuda") -> dict:
+    """The launches on ``device`` that ran the full sweeps since the last
+    :func:`reset_counts`, by the keys of ``psd_project_amortized.launches``
+    (kernel, k, dtype name); one host read."""
+    device = str(_device(device))
+    keys = [key for key, dev in _N_FULL if dev == device]
+    if not keys:
+        return {}
+    counts = torch.cat([_N_FULL[key, device] for key in keys]).tolist()
+    return dict(zip(keys, counts))
 
 
 def reset_counts():
@@ -114,17 +193,30 @@ def reset_counts():
         t.zero_()
 
 
+def launches_of(kernel: str) -> int:
+    """The launches of ``kernel`` ("jacobi_eig" or "jacobi_eig_large")
+    counted since the last :func:`reset_counts`."""
+    return sum(n for (name, _, _), n in psd_project_amortized.launches.items()
+               if name == kernel)
+
+
 def psd_project_amortized(X, V_prev, warm_sweeps: int = 2, full_sweeps: int = 8):
     """The amortized PSD projection of a stack [B, k, k] from the carried
     basis ``V_prev``: on a CUDA device :func:`eigh.amortized_rotate` and one
-    counted launch of the kernel, the stale flag never leaving the card; on
-    the CPU the plain version :func:`eigh.psd_project_amortized`. Returns
-    (P, V)."""
+    counted launch of the side's kernel (:func:`kernel_for`, through its
+    launcher in ``LAUNCHERS``), the stale flag never leaving the card, or at
+    an odd side the reference's eigh branch; on the CPU the plain version
+    :func:`eigh.psd_project_amortized`. Returns (P, V)."""
     if X.device.type == "cpu":
         return eigh_mod.psd_project_amortized(X, V_prev, warm_sweeps, full_sweeps)
     W, V0, stale = eigh_mod.amortized_rotate(X, V_prev)
-    out = jacobi_eig_cuda(W, V0, stale, warm_sweeps, full_sweeps, _tally(X.device))
-    psd_project_amortized.launches[(X.shape[-1], str(X.dtype).split(".")[-1])] += 1
+    k = X.shape[-1]
+    kernel = kernel_for(k)
+    if kernel is None:
+        return eigh_mod.amortized_eigh(W)
+    key = (kernel, k, str(X.dtype).split(".")[-1])
+    out = LAUNCHERS[kernel](W, V0, stale, warm_sweeps, full_sweeps, _tally(key, X.device))
+    psd_project_amortized.launches[key] += 1
     return out
 
 

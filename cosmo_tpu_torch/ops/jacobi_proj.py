@@ -44,16 +44,23 @@ from . import jacobi_proj_rr
 from .eigh import kernel_takes
 
 
-def pair_schedule(k: int) -> np.ndarray:
+def pair_schedule(k: int, dtype=np.uint8) -> np.ndarray:
     """The round-robin pair schedule flattened to [p0, q0, p1, q1, ...]
     (``cosmo_tpu/ops/pallas_eigh.py::_pair_schedule``), as uint8: the
     kernel's shared-memory body (k > 16) reads it; its register body
-    computes the same rounds at compile time."""
+    computes the same rounds at compile time. ``dtype=np.uint16`` gives
+    the table of the large-side kernel (``csrc/jacobi_eig_large.cu``).
+    Raises ValueError when a label does not fit the type (k <= 256 for
+    uint8)."""
+    limit = int(np.iinfo(dtype).max) + 1
+    if k > limit:
+        raise ValueError(f"a {np.dtype(dtype).name} pair table holds the labels of "
+                         f"sides k <= {limit}, got k = {k}")
     flat = []
     for p_arr, q_arr in eigh_mod._round_robin_rounds(k):
         for p, q in zip(p_arr, q_arr):
             flat.extend((int(p), int(q)))
-    return np.asarray(flat, dtype=np.uint8)
+    return np.asarray(flat, dtype=dtype)
 
 
 @lru_cache(maxsize=None)

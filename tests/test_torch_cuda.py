@@ -442,12 +442,13 @@ def test_loose_phase_products_on_card(cuda):
 def _eig_case(B, k, warm, dtype, device, seed):
     """(X, W, V0) of one amortized projection: X symmetric Gaussian; warm,
     V0 its eigenbasis turned by an orthogonal matrix near I (angles ~0.01,
-    under the staleness rule) and W = V0' X V0; stale, V0 = I and W = X."""
+    ~0.01 sqrt(48 / k) above k = 48: under the staleness rule) and W = V0'
+    X V0; stale, V0 = I and W = X."""
     rng = np.random.default_rng(seed)
     G = rng.standard_normal((B, k, k))
     X = (G + G.swapaxes(1, 2)) / 2
     if warm:
-        R = rng.standard_normal((B, k, k)) * 0.01
+        R = rng.standard_normal((B, k, k)) * 0.01 * min(1.0, np.sqrt(48 / k))
         R, _ = np.linalg.qr(np.eye(k) + (R - R.swapaxes(1, 2)))
         V0 = np.linalg.eigh(X)[1] @ R
         W = V0.swapaxes(1, 2) @ X @ V0
@@ -479,7 +480,7 @@ def test_jacobi_eig_kernel_matches_plain_on_card(cuda, dtype, tol):
     sweeps) and stale (8 sweeps, from I), as the staleness rule classes
     them: one full-sweep tally a stale launch; P and V diag(V'XV) V' within ``tol``
     of max |X|, and in float64 V itself."""
-    JE.reset_counts()
+    n_full = torch.zeros(1, dtype=torch.int32, device=cuda)
     n_stale = 0
     for k in range(4, 49, 2):
         for B in (1, 31, 2498) if k <= 16 else (1, 31):
@@ -488,7 +489,7 @@ def test_jacobi_eig_kernel_matches_plain_on_card(cuda, dtype, tol):
                 stale = eigh.amortized_rotate(X, V0)[2]
                 assert bool(stale) != warm, (k, B, warm)
                 n_stale += not warm
-                got = JE.jacobi_eig_cuda(W, V0, stale, 2, 8, JE._tally(cuda))
+                got = JE.jacobi_eig_cuda(W, V0, stale, 2, 8, n_full)
                 torch.cuda.synchronize()
                 ref = JE.jacobi_eig_plain(W, V0, stale, 2, 8)
                 dP, dV, dR = _eig_diff(X, got, ref)
@@ -496,7 +497,7 @@ def test_jacobi_eig_kernel_matches_plain_on_card(cuda, dtype, tol):
                 assert dP <= tol * scale and dR <= tol * scale, (k, B, warm, dP, dR)
                 if dtype == torch.float64:
                     assert dV <= tol * scale, (k, B, warm, dV)
-    assert JE.full_sweep_count(cuda) == n_stale
+    assert n_full.item() == n_stale
 
 
 @pytest.mark.cuda
@@ -508,11 +509,72 @@ def test_jacobi_eig_refuses_bad_input_on_card(cuda):
                  (W.cpu(), V0.cpu())):
         with pytest.raises(ValueError):
             JE.jacobi_eig_cuda(*args, stale, 2, 8)
+    _, W49, V49 = _eig_case(2, 49, False, torch.float32, cuda, seed=0)
+    with pytest.raises(ValueError):
+        JE.jacobi_eig_cuda(W49, V49, stale, 2, 8)
+    _, W16, V16 = _eig_case(2, 16, False, torch.float32, cuda, seed=0)
+    with pytest.raises(ValueError):
+        JE.jacobi_eig_large_cuda(W16, V16, stale, 2, 8)
     _, W50, V50 = _eig_case(2, 50, False, torch.float32, cuda, seed=0)
     with pytest.raises(ValueError):
         JE.jacobi_eig_cuda(W50, V50, stale, 2, 8)
     with pytest.raises(ValueError):
         JE.jacobi_eig_cuda(W, V0, stale.int(), 2, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+def test_jacobi_eig_large_kernel_matches_plain_on_card(cuda, dtype, tol):
+    """The large-side kernel (jacobi_eig_large) against its plain version
+    through its launcher, k in {2, 50, 64, 258}, B in {1, 3}, warm (2
+    sweeps) and stale (8 sweeps, from I) as the staleness rule classes
+    them: one full-sweep tally a stale launch; P and V diag(V'XV) V' within
+    ``tol`` of max |X|, and in float64 V itself; 0 sweeps give V0 and the
+    reconstruction from diag W."""
+    n_full = torch.zeros(1, dtype=torch.int32, device=cuda)
+    n_stale = 0
+    for k in (2, 50, 64, 258):
+        for B in (1, 3):
+            for warm in (True, False):
+                X, W, V0 = _eig_case(B, k, warm, dtype, cuda, seed=100 * k + B)
+                stale = eigh.amortized_rotate(X, V0)[2]
+                assert bool(stale) != warm, (k, B, warm)
+                n_stale += not warm
+                got = JE.jacobi_eig_large_cuda(W, V0, stale, 2, 8, n_full)
+                torch.cuda.synchronize()
+                ref = JE.jacobi_eig_plain(W, V0, stale, 2, 8)
+                dP, dV, dR = _eig_diff(X, got, ref)
+                scale = X.abs().max().item()
+                assert dP <= tol * scale and dR <= tol * scale, (k, B, warm, dP, dR)
+                if dtype == torch.float64:
+                    assert dV <= tol * scale, (k, B, warm, dV)
+    assert n_full.item() == n_stale
+    _, W, V0 = _eig_case(2, 50, True, dtype, cuda, seed=1)
+    P, V = JE.jacobi_eig_large_cuda(W, V0, torch.tensor(False, device=cuda), 0, 0)
+    assert torch.equal(V, V0)
+    assert torch.equal(P, eigh.sym_reconstruct(torch.diagonal(W, dim1=1, dim2=2), V0))
+
+
+@pytest.mark.cuda
+def test_amortized_solve_with_a_large_side_on_card(cuda):
+    """block_sdp(1, 56, 12) with the amortized backend and psd_pad_to=1 (one
+    [1, 56] bucket) on the card in float64, against the same solve on the
+    CPU (objective within 1e-6 relative); jacobi_eig_large launched once a
+    projection, jacobi_eig never."""
+    P, q, A, b, sets = problems.block_sdp(n_blocks=1, side=56, n=12, seed=5)
+    s = pt.Settings(eps_abs=1e-5, eps_rel=1e-5, eigh_backend="amortized", psd_pad_to=1,
+                    dtype=np.float64)
+    JE.reset_counts()
+    model = pt.Model(s)
+    res = model.set(P, q, A, b, sets).optimize()
+    assert JE.launches_of("jacobi_eig_large") == model.last_solve["projections"] > 0
+    assert JE.launches_of("jacobi_eig") == 0
+    full = JE.full_sweep_counts(cuda)
+    assert full[("jacobi_eig_large", 56, "float64")] <= model.last_solve["projections"]
+    assert sum(full.values()) == full[("jacobi_eig_large", 56, "float64")]
+    ref = pt.Model(s, device="cpu").set(P, q, A, b, sets).optimize()
+    assert res.status == ref.status == "Solved"
+    assert abs(res.obj_val - ref.obj_val) <= 1e-6 * abs(ref.obj_val)
 
 
 @pytest.mark.cuda

@@ -9,7 +9,8 @@ same full-or-warm sweep decision. Then solves: ports of tests/test_eigh.py's
 amortized and Jacobi tests, parity of the amortized solve with the
 reference's, its chunked solve against the uninterrupted one, a primal
 infeasible SDP under the amortized backend (the certificate shadow projects
-from a fresh basis), and the CUDA side limit of the backend's kernel."""
+from a fresh basis). The sides of the large kernel and odd sides are in
+tests/test_torch_eigh_large.py."""
 import numpy as np
 import pytest
 import torch
@@ -23,7 +24,6 @@ from cosmo_tpu.ops import eigh as jeigh
 from cosmo_tpu_torch import problems as tprob
 from cosmo_tpu_torch import solver as tsolver
 from cosmo_tpu_torch.models.model import refine_hint
-from cosmo_tpu_torch.ops import conedata as tcd
 from cosmo_tpu_torch.ops import eigh as teigh
 from cosmo_tpu_torch.ops import jacobi_eig
 from cosmo_tpu_torch.settings import split_settings
@@ -223,18 +223,3 @@ def test_amortized_primal_infeasible_sdp():
     rj, rt = build(ct).optimize(), build(pt).optimize()
     assert rj.status == rt.status == "Primal_infeasible"
 
-
-def test_amortized_above_side_48_raises_on_cuda():
-    """On a CUDA device the amortized backend takes the sides of its
-    kernel (even 4..48): a side-56 bucket raises naming the deferred ROADMAP
-    item, compiled for the CPU it does not, and side 48 compiles for
-    either."""
-    big = [pt.PsdConeTriangle(56 * 57 // 2)]
-    with pytest.raises(NotImplementedError, match="amortized above side 48"):
-        tcd.compile_cones(big, psd_pad_to=1, eigh_backend="amortized", device="cuda")
-    assert tcd.compile_cones(big, psd_pad_to=1, eigh_backend="amortized",
-                             device="cpu").psd_buckets[0].side == 56
-    side48 = [pt.PsdConeTriangle(48 * 49 // 2)]
-    for device in ("cuda", "cpu"):
-        assert tcd.compile_cones(side48, eigh_backend="amortized",
-                                 device=device).psd_buckets[0].side == 48

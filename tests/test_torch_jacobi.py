@@ -98,8 +98,9 @@ def test_library_path_hashes_the_included_headers(tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(cuda_build.CSRC, csrc)
     for name in cuda_build.JACOBI_SOURCES:
-        assert [p.name for p in cuda_build._sources(csrc / name)] == [name,
-                                                                    "jacobi_rounds.cuh"]
+        # the large-side kernel shares no code with the round-parallel design
+        headers = [] if name == "jacobi_eig_large.cu" else ["jacobi_rounds.cuh"]
+        assert [p.name for p in cuda_build._sources(csrc / name)] == [name, *headers]
 
     def path():
         return cuda_build.library_path([csrc / n for n in cuda_build.JACOBI_SOURCES],
@@ -114,7 +115,11 @@ def test_library_path_hashes_the_included_headers(tmp_path):
     assert edited != before
     smem = csrc / "jacobi_smem.cu"
     smem.write_text(smem.read_text() + "\n// edited\n")
-    assert path() not in (before, edited)
+    edited_smem = path()
+    assert edited_smem not in (before, edited)
+    large = csrc / "jacobi_eig_large.cu"
+    large.write_text(large.read_text() + "\n// edited\n")
+    assert path() not in (before, edited, edited_smem)
 
 
 _FAKE_NVCC = """#!{python}

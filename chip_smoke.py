@@ -10,11 +10,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 2. build: compiles both kernels' libraries with nvcc for sm_90a, one nvcc
    per source, all started together: the Jacobi kernels' from
    ``cosmo_tpu_torch/csrc/jacobi_proj.cu``, ``jacobi_proj_rr.cu``,
-   ``jacobi_eig.cu``, ``jacobi_smem.cu`` and ``jacobi_eig_large.cu``, the
-   exp/pow cone projection's from
+   ``jacobi_eig.cu``, ``jacobi_smem.cu``, ``jacobi_eig_cluster.cu`` and
+   ``jacobi_eig_large.cu``, the exp/pow cone projection's from
    ``exp_pow_proj.cu``; prints the ptxas reports and fails if any Jacobi
    register body instantiation (``jacobi_proj_regs``) has a stack frame
-   or spills, or an exp/pow instantiation spills;
+   or spills, or an exp/pow or cluster-kernel instantiation spills;
 3. kernel: holds the round-robin and the slot-rotation Jacobi projection
    kernels against their plain PyTorch versions on the card (float32 and
    float64, k in {4, 6, ..., 16, 24, 32, 48}, B in {1, 512, 2498, 8540},
@@ -101,20 +101,27 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    projection adds no host read; (c) ``block_sdp(512, 16, 512)`` with
    ``eigh_backend="jacobi_mm"`` against the known objective; (d) every
    example of ``cosmo_tpu_torch/examples`` through its ``main("cuda")``;
-   (e) the large-side kernel of the amortized backend
-   (``csrc/jacobi_eig_large.cu``, side 2 and the sides above 48) against
-   its plain version (float32 and float64, k in ``LARGE_SIDES`` at B in
-   {1, 8}, B = 1 at 896, warm and stale), timed and bounded at [8, 256]
-   float64 and [1, 896] float32 at 2 and 8 sweeps; (f)
-   ``block_sdp(8, 256, 256)`` at ``REF_BLOCK8X256``'s plain settings in
-   float64 with ``eigh_backend="amortized"`` against ``REF_BLOCK8X256``,
-   the large kernel on every projection, the full-sweep tally, and a
-   second solve under sync debug; (g) maxcut-10k at ``_bench_maxcut10k``'s
-   settings with plain ADMM and the amortized backend for 100 iterations,
-   every bucket's kernel logged, the [1, 896] colpad bucket through the
-   large kernel on every projection, its first projection and the first
-   later one of each regime (warm, full sweeps) held kernel against plain
-   version;
+   (e) the large-side kernels of the amortized backend against their plain
+   version to its bits (float32 and float64, k in ``LARGE_SIDES`` at B in
+   {1, 8}, B = 1 from 640, warm and stale), each case through the kernel
+   ``kernel_for`` routes it to (``csrc/jacobi_eig_cluster.cu``, a
+   thread-block cluster a matrix, where W fits the largest cluster the
+   card schedules, whose cudaOccupancyMaxActiveClusters it prints, else
+   ``csrc/jacobi_eig_large.cu``), timed and bounded at [8, 256] float64
+   and [1, 896] float32 through both kernels and at [1, 640] float64
+   through the large one, at 2 and 8 sweeps; (f) ``block_sdp(8, 256,
+   256)`` at ``REF_BLOCK8X256``'s plain settings in float64 with
+   ``eigh_backend="amortized"`` against ``REF_BLOCK8X256``, the cluster
+   kernel on every projection, the full-sweep tally, and a second solve
+   under sync debug; (g) maxcut-10k at ``_bench_maxcut10k``'s settings with
+   plain ADMM and the amortized backend for 100 iterations, every bucket's
+   kernel logged and every launch through it, the [1, 896] colpad bucket
+   through the cluster kernel on every projection, its first projection
+   and the first later one of each regime (warm, full sweeps) held kernel
+   against plain version to its bits; (h) ``block_sdp(1, 640, 64)`` in
+   float64 with the amortized backend for 30 iterations, its [1, 640]
+   bucket (past the cluster's bytes) through ``jacobi_eig_large`` on
+   every projection;
 11. mesh: ``Model.optimize(mesh=parallel.make_mesh())`` on ranks it spawns
    (gloo on the loopback, each process group with a 300 s time limit), after
    the unsharded references: (a) maxcut-10k at ``_bench_maxcut10k``'s
@@ -322,6 +329,14 @@ def phase_build():
         f"loads, registers): {large}")
     if len(large) != 2:
         raise AssertionError(f"{so.name}: jacobi_eig_large {large}")
+    # the cluster kernel's W phase and V replay, each in f32 and f64: its
+    # loop state stays in registers (a spill fails the build)
+    cluster = {n: f for n, f in ptxas_frames(report).items()
+               if "jacobi_eig_cluster_w" in n or "jacobi_eig_cluster_v" in n}
+    log(f"[build] jacobi_eig_cluster instantiations (stack frame, spill stores, spill "
+        f"loads, registers): {cluster}")
+    if len(cluster) != 4 or any(f[1] or f[2] for f in cluster.values()):
+        raise AssertionError(f"{so.name}: jacobi_eig_cluster {cluster}")
     log(f"[build] in {seconds:.2f} s")
     return seconds
 
@@ -454,6 +469,7 @@ def counted_optimize(model, on_iter=None):
                  "exp_pow_proj/exp": K.project_exp.launches,
                  "exp_pow_proj/pow": K.project_pow.launches,
                  "jacobi_eig": JE.launches_of("jacobi_eig"),
+                 "jacobi_eig_cluster": JE.launches_of("jacobi_eig_cluster"),
                  "jacobi_eig_large": JE.launches_of("jacobi_eig_large")}
 
 
@@ -1378,11 +1394,14 @@ EIG_SIDES = tuple(range(4, 49, 2))
 EIG_BATCHES = (1, 1000, 2498)
 EIG_TIMED = ((16, 2498), (8, 8540))
 WARM_SWEEPS = 2
-# phase 10e: the large-side kernel's shapes (k = 2 and sides above 48 at B
-# in {1, 8}; B = 1 at 896), and the two timed at 2 and 8 sweeps: 10f's
+# phase 10e: the large-side kernels' shapes (k = 2 and sides above 48 at B
+# in {1, 8}; B = 1 from 640), and the three timed at 2 and 8 sweeps: 10f's
 # [8, 256] bucket in float64 and 10g's [1, 896] colpad bucket in float32
-LARGE_SIDES = (2, 50, 56, 64, 96, 128, 256, 258, 512, 896)
-LARGE_TIMED = ((256, 8, "float64"), (896, 1, "float32"))
+# (jacobi_eig_cluster, beside jacobi_eig_large on the same inputs), and
+# 10h's [1, 640] bucket in float64 (jacobi_eig_large: past the cluster's
+# bytes)
+LARGE_SIDES = (2, 50, 56, 64, 96, 128, 256, 258, 512, 640, 896)
+LARGE_TIMED = ((256, 8, "float64"), (896, 1, "float32"), (640, 1, "float64"))
 # 10f: block_sdp(8, 256, 256) at REF_BLOCK8X256's plain settings in float64,
 # eps 1e-5, with the amortized backend
 BLOCK8X256_AMORTIZED = dict(accelerator=None, adaptive_rho=False, check_termination=25,
@@ -1392,6 +1411,11 @@ BLOCK8X256_AMORTIZED = dict(accelerator=None, adaptive_rho=False, check_terminat
 # amortized backend for a fixed 100 iterations (11a's depth)
 MAXCUT10K_AMORTIZED = dict(MAXCUT10K, accelerator=None, eigh_backend="amortized",
                            max_iter=100)
+# 10h: block_sdp(1, 640, 64) at REF_BLOCK8X256's plain settings in float64
+# with the amortized backend for a fixed 30 iterations: a side past the
+# cluster kernel's bytes in float64, so jacobi_eig_large's path
+BLOCK640 = dict(n_blocks=1, side=640, n=64, seed=0)
+BLOCK640_AMORTIZED = dict(BLOCK8X256_AMORTIZED, max_iter=30)
 
 
 def eig_case(B, k, warm, seed):
@@ -1476,40 +1500,40 @@ def once_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def eig_rows(device, label, name, shapes, timed, reps=20, plain_reps=3):
-    """A warm-started Jacobi kernel through its launcher
-    (``jacobi_eig.LAUNCHERS[name]``, the kernel of each side's
-    ``kernel_for``) against its plain version,
-    float32 and float64, at every (k, B) of ``shapes``, one warm case (V0
-    near W's eigenbasis, 2 sweeps) and one stale (V0 = I, 8 sweeps) each,
-    each of which the backend's staleness rule (``eigh.amortized_rotate``)
-    classes as such: P and V diag(V'XV) V' within ``TOL`` of max |X|, and in
-    float64 V itself (max |V - V_ref| is logged for float32). The plain
-    version runs once on the stack of a side's cases of one type and
-    regime: its rounds are elementwise over the matrices, so each gets the
-    bits it gets alone, and the run pays its ~60 torch launches a round
-    once; with ``plain_reps=0`` a timed case is left out of the stack, and
-    its one timed call (``once_ms``) is its reference. At the (k, B,
-    dtype) of ``timed`` the kernel's function
-    (``launch_ms`` and ``device_ms``; for jacobi_eig_large with its torch
-    reconstruction, ``eigh.sym_reconstruct``), its plain version on the
-    case alone and ``eig_library`` are timed and bounded, and the torch
-    part of the amortized projection before the kernel
-    (``eigh.amortized_rotate``) is timed beside them; with ``plain_reps=0``
-    the plain version is timed by that one call."""
+def eig_rows(device, label, kernels, shapes, timed, exact=False, reps=20, plain_reps=3):
+    """Warm-started Jacobi kernels through their launchers
+    (``jacobi_eig.LAUNCHERS``) against their plain version, float32 and
+    float64, at every (k, B) of ``shapes``, one warm case (V0 near W's
+    eigenbasis, 2 sweeps) and one stale (V0 = I, 8 sweeps) each, each of
+    which the backend's staleness rule (``eigh.amortized_rotate``) classes
+    as such. ``kernels(k, dtype_name, is_timed)`` names the kernels a case
+    launches, the first the one ``kernel_for`` routes the side to (checked).
+    With ``exact`` every kernel must give the plain version's bits (P, V and
+    V diag(V'XV) V' differ by 0); else P and V diag(V'XV) V' within ``TOL``
+    of max |X|, and in float64 V itself (max |V - V_ref| is logged for
+    float32). The plain version's Jacobi runs once on the stack of a side's
+    cases of one type and regime: its rounds are elementwise over the
+    matrices, so each gets the bits it gets alone, and the run pays its ~60
+    torch launches a round once; its reconstruction runs on each case
+    alone; with ``plain_reps=0`` a timed case is left out of the stack, and
+    its one timed call (``once_ms``) is its reference. At
+    the (k, B, dtype) of ``timed`` each kernel's function (``launch_ms`` and
+    ``device_ms``; for the large-side kernels with their torch
+    reconstruction, ``eigh.sym_reconstruct``), its plain version on the case
+    alone and ``eig_library`` are timed and bounded, and the torch part of
+    the amortized projection before the kernel (``eigh.amortized_rotate``)
+    is timed beside them; with ``plain_reps=0`` the plain version is timed
+    by that one call."""
     import torch
     from cosmo_tpu_torch.kernel_timing import device_ms, launch_ms
     from cosmo_tpu_torch.ops import eigh as E
     from cosmo_tpu_torch.ops import jacobi_eig as JE
 
-    launch = JE.LAUNCHERS[name]
     rows = []
     sides = {}
     for k, B in shapes:
         sides.setdefault(k, []).append(B)
     for k, batches in sides.items():
-        if JE.kernel_for(k) != name:
-            raise AssertionError(f"{label}: k={k} goes to {JE.kernel_for(k)}")
         for warm in (True, False):
             arrays = [eig_case(B, k, warm, seed=1000 * k + B + warm) for B in batches]
             for dtype_name in ("float32", "float64"):
@@ -1525,16 +1549,21 @@ def eig_rows(device, label, name, shapes, timed, reps=20, plain_reps=3):
                                              f"warm={warm} case at k={k}, B={B} the other")
                 alone = [(k, B, dtype_name) in timed and not plain_reps for B in batches]
                 stacked = [c for c, a in zip(cases, alone) if not a]
-                if stacked:
-                    P_all, V_all = JE.jacobi_eig_plain(
-                        torch.cat([c[1] for c in stacked]),
-                        torch.cat([c[2] for c in stacked]), stales[0], WARM_SWEEPS, SWEEPS)
                 sweeps = WARM_SWEEPS if warm else SWEEPS
+                if stacked:
+                    # jacobi_eig_plain's Jacobi on the stack; each case's
+                    # reconstruction on the case alone, as its kernel's
+                    # wrapper batches it (a batched product's rounding may
+                    # depend on the batch)
+                    w_all, V_all = E.jacobi_eigh(torch.cat([c[1] for c in stacked]), sweeps,
+                                                 V0=torch.cat([c[2] for c in stacked]))
                 start = 0
                 for B, (X, W, V0), stale, own in zip(batches, cases, stales, alone):
-
-                    def kernel():
-                        return launch(W, V0, stale, WARM_SWEEPS, SWEEPS)
+                    is_timed = (k, B, dtype_name) in timed
+                    names = kernels(k, dtype_name, is_timed)
+                    if JE.kernel_for(k, dtype) != names[0]:
+                        raise AssertionError(f"{label}: k={k} {dtype_name} goes to "
+                                             f"{JE.kernel_for(k, dtype)}, not {names[0]}")
 
                     def plain():
                         return JE.jacobi_eig_plain(W, V0, stale, WARM_SWEEPS, SWEEPS)
@@ -1542,46 +1571,56 @@ def eig_rows(device, label, name, shapes, timed, reps=20, plain_reps=3):
                     if own:
                         ref, plain_ms = once_ms(plain)
                     else:
-                        ref = P_all[start:start + B], V_all[start:start + B]
+                        w, V = w_all[start:start + B], V_all[start:start + B]
+                        ref = E.sym_reconstruct(w, V), V
                         start += B
-                    got = kernel()
-                    torch.cuda.synchronize()
-                    dP, dV, dR = eig_diffs(X, got, ref)
-                    scale = X.abs().max().item()
-                    ok = all(np.isfinite((dP, dV, dR))) and dP <= tol * scale and (
-                        dR <= tol * scale) and (dtype_name == "float32"
-                                                or dV <= tol * scale)
-                    is_timed = (k, B, dtype_name) in timed
                     if not is_timed:
-                        plain_ms = None
-                    elif plain_reps:
-                        plain_ms = launch_ms(plain, plain_reps)
+                        plain_ms = library_ms = rotate_ms = None
+                    else:
+                        if plain_reps:
+                            plain_ms = launch_ms(plain, plain_reps)
+                        library_ms = launch_ms(lambda: eig_library(W, V0), reps)
+                        rotate_ms = launch_ms(lambda: E.amortized_rotate(X, V0), reps)
                     bound_ms, bound_by = eig_bound_ms(B, k, dtype_name, sweeps)
-                    row = dict(
-                        kernel=name, dtype=dtype_name, k=k, B=B, sweeps=sweeps,
-                        max_abs_err=max(dP, dR) if dtype_name == "float32"
-                        else max(dP, dV, dR), max_abs_err_P=dP, max_abs_err_V=dV,
-                        max_abs_err_rec=dR, max_abs_x=scale, tol_rel=tol, ok=ok,
-                        bound_ms=bound_ms, bound_by=bound_by,
-                        ms=launch_ms(kernel, reps) if is_timed else None,
-                        device_ms=device_ms(kernel, reps) if is_timed else None,
-                        plain_ms=plain_ms,
-                        library_ms=(launch_ms(lambda: eig_library(W, V0), reps)
-                                    if is_timed else None),
-                        rotate_ms=(launch_ms(lambda: E.amortized_rotate(X, V0), reps)
-                                   if is_timed else None))
-                    rows.append(row)
-                    times = ("" if not is_timed else
-                             f" ms={row['ms']:.4f} device={row['device_ms']:.4f} plain="
-                             f"{row['plain_ms']:.3f} eigh={row['library_ms']:.3f} (torch "
-                             f"rotation before the kernel {row['rotate_ms']:.4f})")
-                    log(f"[backends] {name} {dtype_name} k={k:3d} B={B:5d} sweeps={sweeps} "
-                        f"err P {dP:.3e} V {dV:.3e} V diag(V'XV) V' {dR:.3e} (tol "
-                        f"{tol:.0e}*{scale:.2f}){times} bound={bound_ms:.5f} ({bound_by}) "
-                        f"{'ok' if ok else 'FAIL'}")
+                    for name in names:
+                        launch = JE.LAUNCHERS[name]
+
+                        def kernel():
+                            return launch(W, V0, stale, WARM_SWEEPS, SWEEPS)
+
+                        got = kernel()
+                        torch.cuda.synchronize()
+                        dP, dV, dR = eig_diffs(X, got, ref)
+                        scale = X.abs().max().item()
+                        if exact:
+                            ok = dP == dV == dR == 0
+                        else:
+                            ok = all(np.isfinite((dP, dV, dR))) and dP <= tol * scale and (
+                                dR <= tol * scale) and (dtype_name == "float32"
+                                                        or dV <= tol * scale)
+                        row = dict(
+                            kernel=name, route=names[0], dtype=dtype_name, k=k, B=B,
+                            sweeps=sweeps,
+                            max_abs_err=max(dP, dR) if dtype_name == "float32" and not exact
+                            else max(dP, dV, dR), max_abs_err_P=dP, max_abs_err_V=dV,
+                            max_abs_err_rec=dR, max_abs_x=scale, tol_rel=0 if exact else tol,
+                            ok=ok, bound_ms=bound_ms, bound_by=bound_by,
+                            ms=launch_ms(kernel, reps) if is_timed else None,
+                            device_ms=device_ms(kernel, reps) if is_timed else None,
+                            plain_ms=plain_ms, library_ms=library_ms, rotate_ms=rotate_ms)
+                        rows.append(row)
+                        times = ("" if not is_timed else
+                                 f" ms={row['ms']:.4f} device={row['device_ms']:.4f} plain="
+                                 f"{row['plain_ms']:.3f} eigh={row['library_ms']:.3f} (torch "
+                                 f"rotation before the kernel {row['rotate_ms']:.4f})")
+                        limit = "0" if exact else f"{tol:.0e}*{scale:.2f}"
+                        log(f"[backends] {name} {dtype_name} k={k:3d} B={B:5d} "
+                            f"sweeps={sweeps} err P {dP:.3e} V {dV:.3e} V diag(V'XV) V' "
+                            f"{dR:.3e} (limit {limit}){times} bound={bound_ms:.5f} "
+                            f"({bound_by}) {'ok' if ok else 'FAIL'}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
-        raise AssertionError(f"{name} disagrees with its plain version: {bad}")
+        raise AssertionError(f"{label}: a kernel disagrees with its plain version: {bad}")
     return rows
 
 
@@ -1591,18 +1630,55 @@ def phase_eig_kernel(device):
     ``EIG_TIMED`` (``eig_rows``)."""
     shapes = [(k, B) for k in EIG_SIDES for B in EIG_BATCHES] + [(8, 8540)]
     timed = {(k, B, d) for k, B in EIG_TIMED for d in ("float32", "float64")}
-    return eig_rows(device, "10a", "jacobi_eig", shapes, timed)
+    return eig_rows(device, "10a", lambda k, d, t: ["jacobi_eig"], shapes, timed)
+
+
+def cluster_capacity(device):
+    """cudaOccupancyMaxActiveClusters of jacobi_eig_cluster at the timed
+    shapes' sides that it takes, by cluster size: how many clusters of each size the card
+    runs at once (``jacobi_eig.MAX_CLUSTER`` is the largest size the rule
+    uses)."""
+    import torch
+    from cosmo_tpu_torch.ops import jacobi_eig as JE
+
+    out = {}
+    for k, _, dtype_name in LARGE_TIMED:
+        dtype = getattr(torch, dtype_name)
+        if JE.kernel_for(k, dtype) != "jacobi_eig_cluster":
+            continue
+        out[f"{k} {dtype_name}"] = {c: JE.max_active_clusters(k, c, dtype, device.index or 0)
+                                    for c in JE._cluster_sizes(k, dtype.itemsize)}
+    log(f"[backends] 10e cudaOccupancyMaxActiveClusters of jacobi_eig_cluster by side and "
+        f"cluster size: {out}; the rule's largest cluster {JE.MAX_CLUSTER}")
+    if not all(n.get(JE.MAX_CLUSTER, 0) > 0 for n in out.values()):
+        raise AssertionError(f"10e: the card schedules no cluster of {JE.MAX_CLUSTER}: {out}")
+    return out
 
 
 def phase_eig_large_kernel(device):
-    """10e: the warm-started Jacobi kernel of side 2 and the sides above 48
-    (jacobi_eig_large) at every side of ``LARGE_SIDES`` at B in {1, 8} (B =
-    1 at 896), timed at ``LARGE_TIMED`` (``eig_rows``; the plain version at
-    896 runs ~140,000 torch launches in 8 sweeps, ~7 s, so it is timed by
-    one call, which is also the timed case's reference)."""
-    shapes = [(k, B) for k in LARGE_SIDES for B in ((1,) if k == 896 else (1, 8))]
-    return eig_rows(device, "10e", "jacobi_eig_large", shapes, set(LARGE_TIMED),
+    """10e: the warm-started Jacobi kernels of side 2 and the sides above 48
+    at every side of ``LARGE_SIDES`` at B in {1, 8} (B = 1 from 640), each
+    case through the kernel ``kernel_for`` routes it to (jacobi_eig_cluster
+    where W fits a cluster, else jacobi_eig_large) and at ``LARGE_TIMED``
+    through both, every launch giving the plain version's bits; timed at
+    ``LARGE_TIMED`` (``eig_rows``; the plain version at 896 runs ~140,000
+    torch launches in 8 sweeps, ~7 s, so it is timed by one call, which is
+    also the timed case's reference). Returns (rows, the card's cluster
+    capacity)."""
+    from cosmo_tpu_torch.ops import jacobi_eig as JE
+
+    def kernels(k, dtype_name, is_timed):
+        import torch
+
+        route = JE.kernel_for(k, getattr(torch, dtype_name))
+        both = is_timed and route != "jacobi_eig_large"
+        return [route, "jacobi_eig_large"] if both else [route]
+
+    capacity = cluster_capacity(device)
+    shapes = [(k, B) for k in LARGE_SIDES for B in ((1,) if k >= 640 else (1, 8))]
+    rows = eig_rows(device, "10e", kernels, shapes, set(LARGE_TIMED), exact=True,
                     plain_reps=0)
+    return rows, capacity
 
 
 def sync_debug_solve(model, label):
@@ -1674,7 +1750,8 @@ def phase_amortized(device, smi):
         raise AssertionError(f"10b: {res.status}, obj {res.obj_val}")
     if (info["bucket_backends"] != ("amortized",) or info["kkt_solver"] != "blockdiag"
             or not launches == info["projections"] > 0 or counts["jacobi_eig_large"]
-            or counts["jacobi_proj"] or counts["jacobi_proj_rr"]):
+            or counts["jacobi_eig_cluster"] or counts["jacobi_proj"]
+            or counts["jacobi_proj_rr"]):
         raise AssertionError(f"10b left its path: {info}, {counts}")
     res2, facts = sync_debug_solve(model, "10b")
     out.update(facts)
@@ -1738,11 +1815,13 @@ def phase_block8x256_amortized(device, smi):
     """10f: block_sdp(8, 256, 256) at ``REF_BLOCK8X256``'s plain settings in
     float64 with eigh_backend="amortized" (``BLOCK8X256_AMORTIZED``): Solved
     within 1e-6 of ``REF_BLOCK8X256``, its one [8, 256] bucket through
-    jacobi_eig_large on every projection and no other Jacobi kernel; the
+    jacobi_eig_cluster (``kernel_for``'s kernel at that side and type) on
+    every projection and no other Jacobi kernel; the
     device tally of full-sweep launches read once at the end; a second
     solve under sync debug (``sync_debug_solve``) flags under 0.1
     synchronizing calls an iteration beyond the solver's host waits."""
     import scipy.sparse as sp
+    import torch
     import cosmo_tpu_torch as pt
     from cosmo_tpu_torch import problems
     from cosmo_tpu_torch.ops import jacobi_eig as JE
@@ -1754,7 +1833,7 @@ def phase_block8x256_amortized(device, smi):
     n_full = sum(JE.full_sweep_counts(device).values())
     info = model.last_solve
     err = abs(res.obj_val - REF_BLOCK8X256) / abs(REF_BLOCK8X256)
-    launches = counts["jacobi_eig_large"]
+    launches = counts["jacobi_eig_cluster"]
     buckets = [(b.batch, b.side) for b in model._dev_cache["cones"].psd_buckets]
     out = dict(status=res.status, iter=res.iter, obj=res.obj_val, rel_err=err,
                setup_s=res.times.setup_time, solve_s=info["iter_time"],
@@ -1765,14 +1844,15 @@ def phase_block8x256_amortized(device, smi):
         f"{res.iter} iters, obj {res.obj_val:.13f} (rel err {err:.2e} of "
         f"{REF_BLOCK8X256}, limit 1e-06), setup {res.times.setup_time:.3f} s, solve "
         f"{info['iter_time']:.3f} s, {out['iter_per_s']:.2f} iter/s, PSD buckets "
-        f"{buckets} {info['bucket_backends']}, jacobi_eig_large launches {launches} "
+        f"{buckets} {info['bucket_backends']}, jacobi_eig_cluster launches {launches} "
         f"({n_full} full sweeps) / projections {info['projections']}, kernels {counts}, "
         f"solver host waits {info['syncs']} [{smi}]")
     if res.status != "Solved" or not err <= 1e-6:
         raise AssertionError(f"10f: {res.status}, obj {res.obj_val}")
     if (buckets != [(8, 256)] or info["bucket_backends"] != ("amortized",)
+            or JE.kernel_for(256, torch.float64) != "jacobi_eig_cluster"
             or not launches == info["projections"] > 0
-            or any(n for name, n in counts.items() if name != "jacobi_eig_large")):
+            or any(n for name, n in counts.items() if name != "jacobi_eig_cluster")):
         raise AssertionError(f"10f left its path: {info}, {counts}")
     res2, facts = sync_debug_solve(model, "10f")
     out.update(facts)
@@ -1785,13 +1865,14 @@ def phase_maxcut_amortized(device, smi):
     """10g: maxcut-10k at ``_bench_maxcut10k``'s settings with plain ADMM and
     eigh_backend="amortized" in float32 for a fixed 100 iterations
     (``MAXCUT10K_AMORTIZED``): every PSD bucket amortized, each logged with
-    the kernel its side takes, the [1, 896] colpad bucket through
-    jacobi_eig_large on every projection, x, y and s finite. The [1, 896]
+    the kernel its side takes (``kernel_for``), every launch through its
+    bucket's kernel, the [1, 896] colpad bucket through jacobi_eig_cluster
+    on every projection, x, y and s finite. The [1, 896]
     bucket's (X, V_prev) is kept at each of its projections (a wrapper
     around ``jacobi_eig.psd_project_amortized`` for this run). The first
     projection and the first later one of each regime (full sweeps, warm)
-    are held, kernel against plain version, to 10e's limits: a stale
-    projection and a later warm one must both be among them, and
+    are held, kernel against plain version, to its bits (10e's limit): a
+    stale projection and a later warm one must both be among them, and
     the bucket's device tally of full-sweep launches (read once, after the
     solve) must count the stale ones. The first projection starts from the identity
     basis but need not be stale: the rule then reads W = X, and maxcut's
@@ -1823,9 +1904,10 @@ def phase_maxcut_amortized(device, smi):
         JE.psd_project_amortized = original
         original.launches = capturing.launches
     info, cones = model.last_solve, model._dev_cache["cones"]
-    buckets = [(b.batch, b.side, b.fastpath, JE.kernel_for(b.side))
+    buckets = [(b.batch, b.side, b.fastpath, JE.kernel_for(b.side, torch.float32))
                for b in cones.psd_buckets]
-    key896 = ("jacobi_eig_large", 896, "float32")
+    kernel896 = JE.kernel_for(896, torch.float32)
+    key896 = (kernel896, 896, "float32")
     n896, full896 = launches.get(key896, 0), JE.full_sweep_counts(device).get(key896, 0)
     finite = all(bool(np.isfinite(getattr(res, a)).all()) for a in ("x", "y", "s"))
     out = dict(status=res.status, iter=res.iter, setup_s=res.times.setup_time,
@@ -1841,7 +1923,9 @@ def phase_maxcut_amortized(device, smi):
         f"sweeps) / projections {info['projections']} [{smi}]")
     log(f"[backends] 10g PSD buckets (B, side, layout, kernel): {buckets}")
     if (cones.eigh_backend != "amortized" or set(info["bucket_backends"]) != {"amortized"}
-            or (1, 896, "colpad", "jacobi_eig_large") not in buckets
+            or kernel896 != "jacobi_eig_cluster"
+            or (1, 896, "colpad", "jacobi_eig_cluster") not in buckets
+            or any(name != JE.kernel_for(k, torch.float32) for name, k, _ in launches)
             or not n896 == len(captured) == info["projections"] > 0 or not finite
             or counts["jacobi_proj"] or counts["jacobi_proj_rr"]):
         raise AssertionError(f"10g left its path: {out}")
@@ -1852,17 +1936,17 @@ def phase_maxcut_amortized(device, smi):
         is_stale = bool(stale)
         if n > 0 and is_stale in [h["stale"] for h in held[1:]]:
             continue
-        got = JE.jacobi_eig_large_cuda(W, V0, stale, WARM_SWEEPS, SWEEPS)
+        got = JE.LAUNCHERS[kernel896](W, V0, stale, WARM_SWEEPS, SWEEPS)
         torch.cuda.synchronize()
         dP, dV, dR = eig_diffs(X, got, JE.jacobi_eig_plain(W, V0, stale, WARM_SWEEPS,
                                                              SWEEPS))
         scale = X.abs().max().item()
-        ok = all(np.isfinite((dP, dR))) and max(dP, dR) <= TOL["float32"] * scale
+        ok = dP == dV == dR == 0
         held.append(dict(projection=n, stale=is_stale, max_abs_err_P=dP,
                          max_abs_err_V=dV, max_abs_err_rec=dR, max_abs_x=scale, ok=ok))
         log(f"[backends] 10g [1, 896] projection {n} ({'stale' if is_stale else 'warm'}):"
             f" kernel against plain err P {dP:.3e} V {dV:.3e} V diag(V'XV) V' {dR:.3e} "
-            f"(tol 1e-04*{scale:.2f}) {'ok' if ok else 'FAIL'}")
+            f"(limit 0) {'ok' if ok else 'FAIL'}")
         if len(held) == 3:
             break
     out["held"] = held
@@ -1874,8 +1958,68 @@ def phase_maxcut_amortized(device, smi):
     return out
 
 
+def phase_large_side_amortized(device, smi):
+    """10h: ``block_sdp(1, 640, 64)`` in float64 with eigh_backend="amortized"
+    for a fixed 30 iterations (``BLOCK640_AMORTIZED``): its [1, 640] bucket
+    is past the cluster kernel's bytes in float64, so ``kernel_for`` sends
+    it to jacobi_eig_large, which takes every projection and no other
+    Jacobi kernel runs; x, y and s finite; the last projection's (X,
+    V_prev), kept by a wrapper around ``jacobi_eig.psd_project_amortized``,
+    held kernel against plain version to its bits."""
+    import scipy.sparse as sp
+    import torch
+    import cosmo_tpu_torch as pt
+    from cosmo_tpu_torch import problems
+    from cosmo_tpu_torch.ops import eigh as E
+    from cosmo_tpu_torch.ops import jacobi_eig as JE
+
+    P, q, A, b, sets = problems.block_sdp(**BLOCK640)
+    model = pt.Model(pt.Settings(**BLOCK640_AMORTIZED), device=device).set(
+        P, q, sp.csr_matrix(A), b, sets)
+    original, captured = JE.psd_project_amortized, []
+
+    def capturing(X, V_prev, *args, **kwargs):
+        captured[:] = [(X.clone(), V_prev.clone())]
+        return original(X, V_prev, *args, **kwargs)
+
+    capturing.launches = original.launches
+    JE.psd_project_amortized = capturing
+    try:
+        res, counts = counted_optimize(model)
+    finally:
+        JE.psd_project_amortized = original
+        original.launches = capturing.launches
+    info = model.last_solve
+    n_full = sum(JE.full_sweep_counts(device).values())
+    finite = all(bool(np.isfinite(getattr(res, a)).all()) for a in ("x", "y", "s"))
+    X, V_prev = captured[0]
+    W, V0, stale = E.amortized_rotate(X, V_prev)
+    got = JE.jacobi_eig_large_cuda(W, V0, stale, WARM_SWEEPS, SWEEPS)
+    torch.cuda.synchronize()
+    dP, dV, dR = eig_diffs(X, got, JE.jacobi_eig_plain(W, V0, stale, WARM_SWEEPS, SWEEPS))
+    launches = counts["jacobi_eig_large"]
+    buckets = [(b.batch, b.side) for b in model._dev_cache["cones"].psd_buckets]
+    out = dict(status=res.status, iter=res.iter, solve_s=info["iter_time"],
+               iter_per_s=res.iter / info["iter_time"], launches=launches,
+               full_sweep_launches=n_full, projections=info["projections"],
+               buckets=buckets, finite=finite, counts=counts, max_abs_err_P=dP,
+               max_abs_err_V=dV, max_abs_err_rec=dR, last_stale=bool(stale))
+    log(f"[backends] 10h block_sdp(1,640,64) float64 amortized: {res.status}, {res.iter} "
+        f"iters, solve {info['iter_time']:.3f} s, {out['iter_per_s']:.2f} iter/s, PSD "
+        f"buckets {buckets}, jacobi_eig_large launches {launches} ({n_full} full sweeps) / "
+        f"projections {info['projections']}, kernels {counts}, x, y, s finite {finite}; "
+        f"the last projection ({'stale' if stale else 'warm'}) kernel against plain err P "
+        f"{dP:.3e} V {dV:.3e} V diag(V'XV) V' {dR:.3e} (limit 0) [{smi}]")
+    if (buckets != [(1, 640)] or JE.kernel_for(640, torch.float64) != "jacobi_eig_large"
+            or not launches == info["projections"] > 0 or not finite
+            or any(n for name, n in counts.items() if name != "jacobi_eig_large")
+            or not dP == dV == dR == 0):
+        raise AssertionError(f"10h left its path: {out}")
+    return out
+
+
 def phase_backends(device, smi):
-    """10a-10g."""
+    """10a-10h."""
     out = {}
     for name, run in (("eig_kernel", lambda: phase_eig_kernel(device)),
                       ("amortized", lambda: phase_amortized(device, smi)),
@@ -1884,7 +2028,9 @@ def phase_backends(device, smi):
                       ("eig_large_kernel", lambda: phase_eig_large_kernel(device)),
                       ("block8x256_amortized",
                        lambda: phase_block8x256_amortized(device, smi)),
-                      ("maxcut_amortized", lambda: phase_maxcut_amortized(device, smi))):
+                      ("maxcut_amortized", lambda: phase_maxcut_amortized(device, smi)),
+                      ("large_side_amortized",
+                       lambda: phase_large_side_amortized(device, smi))):
         t = time.perf_counter()
         out[name] = run()
         out[f"{name}_s"] = time.perf_counter() - t
@@ -1916,6 +2062,7 @@ def _mesh_solve(model, mesh, out_dir, label, rank, save):
     counts = {"jacobi_proj": J.psd_project_pallas.launches,
               "jacobi_proj_rr": R.psd_project_rr.launches,
               "jacobi_eig": JE.launches_of("jacobi_eig"),
+              "jacobi_eig_cluster": JE.launches_of("jacobi_eig_cluster"),
               "jacobi_eig_large": JE.launches_of("jacobi_eig_large")}
     info, cones = model.last_solve, model._dev_cache["cones"]
     if save:
@@ -2215,25 +2362,33 @@ def main(argv=None):
             shape=dict(B=2498, k=16, dtype="float64", sweeps=sweeps),
             path="banded_amortized", plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
-    # the large-side kernel at 10f's [8, 256] float64 bucket and at 10g's
-    # [1, 896] float32 colpad bucket: one row at the warm sweeps with the
-    # path's warm launches on the bucket, one at the full sweeps with its
-    # full-sweep launches (the bucket's device tally)
+    # the large-side kernels at their paths' buckets: jacobi_eig_cluster at
+    # 10f's [8, 256] float64 bucket and at 10g's [1, 896] float32 colpad
+    # bucket, jacobi_eig_large at 10h's [1, 640] float64 bucket (past the
+    # cluster's bytes): one row at the warm sweeps with the path's warm
+    # launches on the bucket, one at the full sweeps with its full-sweep
+    # launches (the bucket's device tally)
     block, mc = backends["block8x256_amortized"], backends["maxcut_amortized"]
+    wide = backends["large_side_amortized"]
+    large_rows, _ = backends["eig_large_kernel"]
     mc_path = "maxcut-10000 amortized, 100 iterations"
-    for k, B, dtype_name, sweeps, launches, path in (
-            (256, 8, "float64", WARM_SWEEPS,
+    for name, k, B, dtype_name, sweeps, launches, path in (
+            ("jacobi_eig_cluster", 256, 8, "float64", WARM_SWEEPS,
              block["launches"] - block["full_sweep_launches"], "block_sdp_8x256_amortized"),
-            (256, 8, "float64", SWEEPS, block["full_sweep_launches"],
+            ("jacobi_eig_cluster", 256, 8, "float64", SWEEPS, block["full_sweep_launches"],
              "block_sdp_8x256_amortized"),
-            (896, 1, "float32", WARM_SWEEPS,
+            ("jacobi_eig_cluster", 896, 1, "float32", WARM_SWEEPS,
              mc["launches_896"] - mc["full_sweep_launches_896"], mc_path),
-            (896, 1, "float32", SWEEPS, mc["full_sweep_launches_896"], mc_path)):
-        row = next(r for r in backends["eig_large_kernel"] if r["dtype"] == dtype_name
+            ("jacobi_eig_cluster", 896, 1, "float32", SWEEPS, mc["full_sweep_launches_896"],
+             mc_path),
+            ("jacobi_eig_large", 640, 1, "float64", WARM_SWEEPS,
+             wide["launches"] - wide["full_sweep_launches"], "block_sdp_1x640_amortized"),
+            ("jacobi_eig_large", 640, 1, "float64", SWEEPS, wide["full_sweep_launches"],
+             "block_sdp_1x640_amortized")):
+        row = next(r for r in large_rows if r["kernel"] == name and r["dtype"] == dtype_name
                    and r["k"] == k and r["B"] == B and r["sweeps"] == sweeps)
         kernels.append(dict(
-            name="jacobi_eig_large", route="cuda",
-            source="cosmo_tpu_torch/csrc/jacobi_eig_large.cu",
+            name=name, route="cuda", source=f"cosmo_tpu_torch/csrc/{name}.cu",
             replaces="cosmo_tpu/ops/eigh.py:266", launches=launches,
             max_abs_err=row["max_abs_err"], ms=row["ms"], device_ms=row["device_ms"],
             shape=dict(B=B, k=k, dtype=dtype_name, sweeps=sweeps), path=path,

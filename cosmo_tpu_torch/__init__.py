@@ -19,8 +19,10 @@ CUDA kernels carry the projections: the Jacobi PSD projection of small
 blocks (``ops/jacobi_proj.py``, ``csrc/jacobi_proj.cu``), its warm-started
 variants for the amortized backend, which carries each PSD bucket's
 eigenbasis across iterations (``ops/jacobi_eig.py``: ``csrc/jacobi_eig.cu``
-for sides 4..48, ``csrc/jacobi_eig_large.cu`` for side 2 and the sides
-above 48), and the exponential and power cones'
+for sides 4..48, ``csrc/jacobi_eig_cluster.cu`` for side 2 and the sides
+above 48 whose matrix fits a thread-block cluster's shared memory,
+``csrc/jacobi_eig_large.cu`` for the larger ones), and the exponential and
+power cones'
 (``ops/exp_pow_proj.py``, ``csrc/exp_pow_proj.cu``). The examples of the
 JAX package have their port in :mod:`.examples`
 (``python -m cosmo_tpu_torch.examples.lp [--device cpu]``).

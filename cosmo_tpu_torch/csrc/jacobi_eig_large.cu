@@ -45,9 +45,9 @@
 //     read through L2 (__ldcg), never from a stale L1 line.
 //   * The plain version's rounding, operation for operation. Each product,
 //     sum, quotient and square root is rounded once, as the plain version's
-//     torch operations round it (__f*_rn / __d*_rn: no FMA contraction,
-//     IEEE division and square root), so on the card kernel and plain
-//     version give the same bits. Near its side's limit a Jacobi that has
+//     torch operations round it (jacobi_rn.cuh: __f*_rn / __d*_rn, no FMA
+//     contraction, IEEE division and square root), so on the card kernel
+//     and plain version give the same bits. Near its side's limit a Jacobi that has
 //     not converged amplifies any rounding difference: with the Newton-
 //     refined angle of jacobi_rounds.cuh and FMAs a first version differed
 //     from the plain version by up to 1.8e-3 of max |X| in float32 at
@@ -56,14 +56,20 @@
 //   * The pair table is [k-1][k/2][2] uint16 (ops/jacobi_proj.pair_schedule
 //     with numpy.uint16): the uint8 table of the small bodies ends at k = 256.
 //
+// Which sides it keeps. jacobi_eig_cluster.cu holds W in the shared memory
+// of one thread-block cluster a matrix and is faster (2.8 times at [8, 256]
+// f64, 1.6 times at [1, 896] f32 on an H100: PERF.md §6);
+// ops/jacobi_eig.kernel_for sends it every side whose W fits a cluster of
+// 16 CTAs of 227 KB (up to 896 in f32, 608 in f64). This kernel keeps the even sides
+// past that, up to its pair table's 65,536: there W outgrows the largest
+// cluster the card schedules, but a bucket's W and V still sit in L2.
+//
 // What bounds it. The function's work (chip_smoke.eig_bound_ms) bounds it by
-// operations, ~0.08 ms for [8, 256] f64 at 2 sweeps. This kernel is a chain
-// of sweeps x (k - 1) rounds (510 at [8, 256] warm, 1,790 at [1, 896]), each
-// a pass over W and V through L2 with each angle recomputed by the k/2
-// threads that use it, then a grid barrier: the chain, not the work, sets
-// its time. Not used yet: wgmma, TMA, thread block clusters (a cluster per
-// matrix in distributed shared memory would hold [8, 256] f64 but not
-// [1, 896] f32), several tiles a thread.
+// operations, ~0.15 ms for [1, 640] f64 at 2 sweeps. This kernel is a chain
+// of sweeps x (k - 1) rounds (1,278 at [1, 640] warm), each a pass over W
+// and V through L2 with each angle recomputed by the k/2 threads that use
+// it, then a grid barrier (~8-9 us a round): the chain, not the work, sets
+// its time. Not used: wgmma, TMA, several tiles a thread.
 //
 // C interface (in the library of jacobi_proj.cu, loaded with ctypes):
 // jacobi_eig_large_f32 / jacobi_eig_large_f64 launch on the given stream and
@@ -74,9 +80,10 @@
 // uint16 table; `stale` a device byte; `n_full` a device int that counts
 // full-sweep launches (or null).
 
-#include <cfloat>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "jacobi_rn.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -84,38 +91,6 @@ namespace jacobi {
 namespace {
 
 constexpr int kLargeThreads = 256;
-
-// each operation rounded once, never contracted into an FMA
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
-__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
-
-template <typename T> struct Tiny16;
-template <> struct Tiny16<float> { static constexpr float value = FLT_MIN * 16.0f; };
-template <> struct Tiny16<double> { static constexpr double value = DBL_MIN * 16.0; };
-
-// (c, s) of the rotation that zeroes a_pq, as eigh.rotation_angles computes
-// it: tau = (a_qq - a_pp) / (2 a_pq), t = sign(tau) / (|tau| + sqrt(tau^2 +
-// 1)) (sign(0) = 0), t = 1 when tau == 0, c = 1 / sqrt(t^2 + 1), s = t c;
-// the identity rotation when |a_pq| <= 16 tiny
-template <typename T>
-__device__ __forceinline__ void rotation_rn(T app, T aqq, T apq, T& c, T& s) {
-  const bool small = fabs(apq) <= Tiny16<T>::value;
-  const T tau = div_rn(sub_rn(aqq, app), mul_rn(T(2), small ? T(1) : apq));
-  const T sign = static_cast<T>((T(0) < tau) - (tau < T(0)));
-  T t = div_rn(sign, add_rn(fabs(tau), sqrt_rn(add_rn(mul_rn(tau, tau), T(1)))));
-  if (tau == T(0)) t = T(1);
-  const T c0 = div_rn(T(1), sqrt_rn(add_rn(mul_rn(t, t), T(1))));
-  c = small ? T(1) : c0;
-  s = small ? T(0) : mul_rn(t, c0);
-}
 
 template <typename T>
 struct LargeArgs {
@@ -140,17 +115,6 @@ __device__ __forceinline__ T entry(const T* m, int k, int a, int b, bool sym) {
   const T x = __ldcg(m + static_cast<long long>(a) * k + b);
   return sym ? mul_rn(T(0.5), add_rn(x, __ldcg(m + static_cast<long long>(b) * k + a)))
              : x;
-}
-
-// the new p and q of a pair (x_p, x_q) turned by (c, s): c x_p - s x_q and
-// s x_p + c x_q
-template <typename T>
-__device__ __forceinline__ T turn_p(T c, T s, T xp, T xq) {
-  return sub_rn(mul_rn(c, xp), mul_rn(s, xq));
-}
-template <typename T>
-__device__ __forceinline__ T turn_q(T c, T s, T xp, T xq) {
-  return add_rn(mul_rn(s, xp), mul_rn(c, xq));
 }
 
 template <typename T>

@@ -34,9 +34,9 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 # the Jacobi kernels' library: the round-robin and the slot-rotation
 # schedules' C entries, the warm-started eigendecomposition's, the
 # shared-memory body all three use, and the warm-started
-# eigendecomposition of the large sides
+# eigendecompositions of the large sides (a cluster a matrix; the grid)
 JACOBI_SOURCES = ("jacobi_proj.cu", "jacobi_proj_rr.cu", "jacobi_eig.cu",
-                  "jacobi_smem.cu", "jacobi_eig_large.cu")
+                  "jacobi_smem.cu", "jacobi_eig_cluster.cu", "jacobi_eig_large.cu")
 JACOBI_ENTRIES = ("jacobi_proj", "jacobi_proj_rr")
 # the exp/pow cone projection's library: one source, one entry a family
 EXP_POW_SOURCES = ("exp_pow_proj.cu",)
@@ -129,8 +129,13 @@ def jacobi_library() -> ctypes.CDLL:
     n_full, int B, int k, void* stream)``; ``jacobi_eig_large_f32`` and
     ``jacobi_eig_large_f64`` are ``int f(const T* w, const T* v0, T* d, T*
     v, T* scratch, const uint16_t* pairs, const uint8_t* stale, int warm,
-    int full, int* n_full, int B, int k, void* stream)``. Each returns
-    ``cudaGetLastError()`` (or the launch's error)."""
+    int full, int* n_full, int B, int k, void* stream)``;
+    ``jacobi_eig_cluster_f32`` and ``jacobi_eig_cluster_f64`` are ``int
+    f(const T* w, const T* v0, T* d, T* v, T* angle_log, int* progress,
+    const uint8_t* stale, int warm, int full, int* n_full, int B, int k, int
+    cluster, void* stream)``, and ``jacobi_eig_cluster_max_active_<f32|f64>(int k, int
+    cluster, int* out)`` the card's cudaOccupancyMaxActiveClusters for that
+    launch. Each returns ``cudaGetLastError()`` (or the launch's error)."""
     lib = ctypes.CDLL(str(build_jacobi()))
     p, i = ctypes.c_void_p, ctypes.c_int
     for t in ("f32", "f64"):
@@ -139,7 +144,11 @@ def jacobi_library() -> ctypes.CDLL:
         getattr(lib, f"jacobi_eig_{t}").argtypes = [p, p, p, p, p, p, i, i, p, i, i, p]
         getattr(lib, f"jacobi_eig_large_{t}").argtypes = [p, p, p, p, p, p, p, i, i, p,
                                                           i, i, p]
-        for prefix in (*JACOBI_ENTRIES, "jacobi_eig", "jacobi_eig_large"):
+        getattr(lib, f"jacobi_eig_cluster_{t}").argtypes = [p, p, p, p, p, p, p, i, i,
+                                                            p, i, i, i, p]
+        getattr(lib, f"jacobi_eig_cluster_max_active_{t}").argtypes = [i, i, p]
+        for prefix in (*JACOBI_ENTRIES, "jacobi_eig", "jacobi_eig_large",
+                       "jacobi_eig_cluster", "jacobi_eig_cluster_max_active"):
             getattr(lib, f"{prefix}_{t}").restype = i
     return lib
 

@@ -187,9 +187,9 @@ KERNEL_MAX_SIDE = 48
 def kernel_takes(k: int) -> bool:
     """The reference wrapper's domain rule: even k in [4, 48], the sides of
     the Jacobi kernels ``jacobi_proj``, ``jacobi_proj_rr`` and
-    ``jacobi_eig``. The amortized backend's other kernel,
-    ``jacobi_eig_large``, takes side 2 and the even sides above 48
-    (``jacobi_eig.large_kernel_takes``)."""
+    ``jacobi_eig``. The amortized backend's other kernels,
+    ``jacobi_eig_cluster`` and ``jacobi_eig_large``, take side 2 and the
+    even sides above 48 (``jacobi_eig.kernel_for``)."""
     return k % 2 == 0 and KERNEL_MIN_SIDE <= k <= KERNEL_MAX_SIDE
 
 
@@ -233,8 +233,9 @@ def psd_project_amortized(X, V_prev, warm_sweeps: int = 2, full_sweeps: int = 8,
 
 def jacobi_eig_plain(W, V0, stale, warm: int, full: int, method: str = "vec"):
     """The Jacobi part of the amortized projection, the function of the
-    kernels ``jacobi_eig`` and ``jacobi_eig_large``: ``full`` sweeps on W
-    from the basis V0 when ``stale`` (read on the host), else ``warm``.
+    kernels ``jacobi_eig``, ``jacobi_eig_cluster`` and ``jacobi_eig_large``:
+    ``full`` sweeps on W from the basis V0 when ``stale`` (read on the
+    host), else ``warm``.
     Returns (0.5 (P + P'), V) with P = V max(w, 0) V'. An odd side takes
     the reference's branch, :func:`amortized_eigh`, and ``stale`` is not
     read."""

@@ -13,10 +13,16 @@ takes a side (:func:`kernel_for`):
 * even 4..48 (``eigh.kernel_takes``): ``jacobi_eig`` (``csrc/jacobi_eig.cu``,
   the ``kEig`` instantiation of the design of ``csrc/jacobi_rounds.cuh``,
   a matrix in one warp), the reconstruction fused;
-* even k = 2 and every even k above 48 (:func:`large_kernel_takes`):
+* even k = 2 and the even k above 48 whose W fits the shared memory of the
+  largest cluster (:func:`cluster_kernel_takes`): ``jacobi_eig_cluster``
+  (``csrc/jacobi_eig_cluster.cu``, a thread-block cluster a matrix, W in
+  distributed shared memory, one exchange of bulk copies a round, V
+  replayed from a log of the angles), then P = V max(w, 0) V' as a batched
+  product (``eigh.sym_reconstruct``);
+* the other even k above 48, up to 65,536 (:func:`large_kernel_takes`):
   ``jacobi_eig_large`` (``csrc/jacobi_eig_large.cu``, W and V in global
-  memory, one cooperative launch with a grid barrier a round), then
-  P = V max(w, 0) V' as a batched product (``eigh.sym_reconstruct``);
+  memory, one cooperative launch with a grid barrier a round), the same
+  reconstruction;
 * an odd k: none. The reference's ``jacobi_eigh`` sends it to eigh, which
   ignores V0 (``eigh.amortized_eigh``), and so does the wrapper, on either
   device; the stale flag is not read.
@@ -33,13 +39,14 @@ takes a side (:func:`kernel_for`):
   ``chip_smoke.py`` holds each kernel to it on the card.
 
 Each kernel has its launcher (``LAUNCHERS``: :func:`jacobi_eig_cuda`,
-:func:`jacobi_eig_large_cuda`), which checks its input once. A CUDA tensor
-of a side the launcher's kernel does not take, of another type or layout
-raises, and a build or launch error raises:
-nothing falls back.
+:func:`jacobi_eig_cluster_cuda`, :func:`jacobi_eig_large_cuda`), which
+checks its input once. A CUDA tensor of a side the launcher's kernel does
+not take, of another type or layout raises, and a build or launch error
+raises: nothing falls back.
 """
 from __future__ import annotations
 
+import ctypes
 from collections import Counter
 from functools import lru_cache
 
@@ -54,19 +61,86 @@ from .jacobi_proj import pair_schedule
 # the large-side kernel's largest k: its uint16 pair table's labels
 LARGE_MAX_SIDE = 1 << 16
 
+# the cluster kernel on an H100 (sm_90): the cluster sizes it launches, the
+# largest the card schedules at the kernel's shared memory (16, which needs
+# the non-portable size: cudaOccupancyMaxActiveClusters, printed by
+# chip_smoke.py 10e), and the shared memory a block may use
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+MAX_CLUSTER = 16
+SMEM_MAX = 232_448
+# cluster_size takes the smallest cluster of at least CLUSTER_MIN CTAs whose
+# CTAs turn at most CLUSTER_TILES 2x2 tiles a round (a CTA has up to 1,024
+# threads): on an H100 clusters of 4 beat 1 and 2 at every bucket of
+# maxcut-10k's amortized path, and 8 beat 4 at [8, 256] float64 (PERF.md
+# §6, profile_cluster.py)
+CLUSTER_MIN = 4
+CLUSTER_TILES = 2560
+
 
 def large_kernel_takes(k: int) -> bool:
     """The sides of ``jacobi_eig_large``: even k = 2 and even k above the
-    small kernel's 48 (up to its pair table's 65,536)."""
+    small kernel's 48 (up to its pair table's 65,536). ``kernel_for`` sends
+    those that fit the cluster kernel there instead."""
     return k % 2 == 0 and (k == 2 or eigh_mod.KERNEL_MAX_SIDE < k <= LARGE_MAX_SIDE)
 
 
-def kernel_for(k: int):
-    """The kernel that takes side ``k`` on a CUDA device: "jacobi_eig",
-    "jacobi_eig_large", or None (an odd k: the reference's eigh branch)."""
+def cluster_smem_bytes(k: int, cluster: int, itemsize: int) -> int:
+    """Shared memory of one CTA of ``jacobi_eig_cluster`` at side ``k`` in a
+    cluster of ``cluster`` (``csrc/jacobi_eig_cluster.cu``,
+    ``cluster_smem_bytes``): two round barriers (16 bytes); the CTA's 2 (M +
+    1) columns (M = ceil(h / cluster) slots, h = k/2; each arc with one
+    spare column; a column's stride k rounded up to 16 bytes); two rounds'
+    mailboxes (8 cluster M entries); the angles (2 h); two rounds' pairs (8
+    bytes a pair); two rounds' slot plans (40 bytes a slot each)."""
+    h = k // 2
+    M = -(-h // cluster)
+    stride = -(-k * itemsize // 16) * 16 // itemsize
+    return (16 + (2 * (M + 1) * stride + 8 * cluster * M + 2 * h) * itemsize + 8 * h
+            + 80 * M)
+
+
+def _cluster_sizes(k: int, itemsize: int):
+    """The cluster sizes whose CTAs hold W at side ``k``."""
+    return [c for c in CLUSTER_SIZES if c <= min(MAX_CLUSTER, k // 2)
+            and cluster_smem_bytes(k, c, itemsize) <= SMEM_MAX]
+
+
+def cluster_kernel_takes(k: int, dtype) -> bool:
+    """The sides of ``jacobi_eig_cluster`` in ``dtype`` (float32 or float64):
+    the sides of ``jacobi_eig_large`` whose W fits the shared memory of the
+    largest cluster, up to 896 in float32 and 608 in float64."""
+    return large_kernel_takes(k) and bool(_cluster_sizes(k, dtype.itemsize))
+
+
+def kernel_for(k: int, dtype):
+    """The kernel that takes side ``k`` in ``dtype`` on a CUDA device, the
+    amortized backend's one rule: "jacobi_eig" (even 4..48),
+    "jacobi_eig_cluster" (2 and the even sides above 48 whose W fits a
+    cluster), "jacobi_eig_large" (the other even sides up to 65,536), or
+    None (an odd k: the reference's eigh branch)."""
     if kernel_takes(k):
         return "jacobi_eig"
+    if cluster_kernel_takes(k, dtype):
+        return "jacobi_eig_cluster"
     return "jacobi_eig_large" if large_kernel_takes(k) else None
+
+
+def cluster_size(B: int, k: int, itemsize: int, max_active) -> int:
+    """The cluster size of a ``jacobi_eig_cluster`` launch on B matrices of
+    side k: among the sizes whose CTAs hold W, those that run the B
+    clusters in the fewest waves (``max_active(C)``: the clusters of size C
+    the card holds at once); of these the smallest of at least
+    ``CLUSTER_MIN`` (or the largest there is) whose CTAs turn at most
+    ``CLUSTER_TILES`` tiles a round, else the largest."""
+    sizes = [c for c in _cluster_sizes(k, itemsize) if max_active(c) > 0]
+    if not sizes:
+        raise ValueError(f"jacobi_eig_cluster: no cluster holds side {k} on this card")
+    waves = {c: -(-B // max_active(c)) for c in sizes}
+    fewest = [c for c in sizes if waves[c] == min(waves.values())]
+    h = k // 2
+    least = min(CLUSTER_MIN, max(fewest))
+    small = [c for c in fewest if c >= least and h * -(-h // c) <= CLUSTER_TILES]
+    return min(small) if small else max(fewest)
 
 
 @lru_cache(maxsize=None)
@@ -126,6 +200,61 @@ def jacobi_eig_cuda(W, V0, stale, warm: int, full: int, n_full=None):
     return P, V
 
 
+@lru_cache(maxsize=None)
+def max_active_clusters(k: int, cluster: int, dtype, device_index: int) -> int:
+    """cudaOccupancyMaxActiveClusters of ``jacobi_eig_cluster`` at side
+    ``k`` in clusters of ``cluster`` on the card ``device_index``: how many
+    such clusters it runs at once (0: none fits). Builds the library."""
+    lib = cuda_build.jacobi_library()
+    fn = (lib.jacobi_eig_cluster_max_active_f32 if dtype == torch.float32
+          else lib.jacobi_eig_cluster_max_active_f64)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = fn(k, cluster, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"jacobi_eig_cluster: the occupancy query failed: CUDA error "
+                           f"{err} (k={k}, cluster={cluster}, {dtype})")
+    return out.value
+
+
+def jacobi_eig_cluster_cuda(W, V0, stale, warm: int, full: int, n_full=None,
+                            cluster=None):
+    """Launch ``jacobi_eig_cluster`` on ``W`` and ``V0`` [B, k, k]
+    (contiguous float32/float64 CUDA tensors of a side of
+    :func:`cluster_kernel_takes`) on the current stream: the sweeps of
+    :func:`jacobi_eig_cuda` in one cluster a matrix (``cluster`` CTAs, by
+    default :func:`cluster_size`'s choice), the angles logged and replayed
+    on V0 by a second launch, then P = V max(w, 0) V' from W's diagonal as
+    a batched product (``eigh.sym_reconstruct``). Returns (P, V). Does not
+    count launches."""
+    _check_inputs("jacobi_eig_cluster", lambda k: cluster_kernel_takes(k, W.dtype), W,
+                  V0, stale, n_full)
+    B, k, _ = W.shape
+    w = torch.empty((B, k), dtype=W.dtype, device=W.device)
+    V = torch.empty_like(W)
+    if B == 0:
+        return torch.empty_like(W), V
+    index = _device(W.device).index
+    if cluster is None:
+        cluster = cluster_size(B, k, W.dtype.itemsize,
+                               lambda c: max_active_clusters(k, c, W.dtype, index))
+    # the angle log: (c, s) of every slot of every round the call can run,
+    # and the rounds each CTA has logged (the V replay follows them)
+    angle_log = torch.empty(max(1, B * max(warm, full) * (k - 1) * k), dtype=W.dtype,
+                            device=W.device)
+    progress = torch.zeros(B * cluster, dtype=torch.int32, device=W.device)
+    lib = cuda_build.jacobi_library()
+    fn = lib.jacobi_eig_cluster_f32 if W.dtype == torch.float32 else lib.jacobi_eig_cluster_f64
+    err = fn(W.data_ptr(), V0.data_ptr(), w.data_ptr(), V.data_ptr(), angle_log.data_ptr(),
+             progress.data_ptr(), stale.data_ptr(), int(warm), int(full),
+             None if n_full is None else n_full.data_ptr(), B, k, int(cluster),
+             torch.cuda.current_stream(W.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"jacobi_eig_cluster kernel launch failed: CUDA error {err} "
+                           f"(B={B}, k={k}, cluster={cluster}, {W.dtype})")
+    return eigh_mod.sym_reconstruct(w, V), V
+
+
 def jacobi_eig_large_cuda(W, V0, stale, warm: int, full: int, n_full=None):
     """Launch ``jacobi_eig_large`` on ``W`` and ``V0`` [B, k, k] (contiguous
     float32/float64 CUDA tensors of side 2 or an even side above 48,
@@ -153,7 +282,8 @@ def jacobi_eig_large_cuda(W, V0, stale, warm: int, full: int, n_full=None):
 
 
 # kernel_for's name -> its launcher
-LAUNCHERS = {"jacobi_eig": jacobi_eig_cuda, "jacobi_eig_large": jacobi_eig_large_cuda}
+LAUNCHERS = {"jacobi_eig": jacobi_eig_cuda, "jacobi_eig_cluster": jacobi_eig_cluster_cuda,
+             "jacobi_eig_large": jacobi_eig_large_cuda}
 
 # the device tallies of full-sweep launches, one int32 for each key of
 # psd_project_amortized.launches on each device
@@ -194,8 +324,8 @@ def reset_counts():
 
 
 def launches_of(kernel: str) -> int:
-    """The launches of ``kernel`` ("jacobi_eig" or "jacobi_eig_large")
-    counted since the last :func:`reset_counts`."""
+    """The launches of ``kernel`` ("jacobi_eig", "jacobi_eig_cluster" or
+    "jacobi_eig_large") counted since the last :func:`reset_counts`."""
     return sum(n for (name, _, _), n in psd_project_amortized.launches.items()
                if name == kernel)
 
@@ -211,7 +341,7 @@ def psd_project_amortized(X, V_prev, warm_sweeps: int = 2, full_sweeps: int = 8)
         return eigh_mod.psd_project_amortized(X, V_prev, warm_sweeps, full_sweeps)
     W, V0, stale = eigh_mod.amortized_rotate(X, V_prev)
     k = X.shape[-1]
-    kernel = kernel_for(k)
+    kernel = kernel_for(k, X.dtype)
     if kernel is None:
         return eigh_mod.amortized_eigh(W)
     key = (kernel, k, str(X.dtype).split(".")[-1])

@@ -13,10 +13,10 @@ asked) and ``matmul_precision`` (float32 products always run in full
 float32: the solve sets ``torch.backends.cuda.matmul.allow_tf32 = False``).
 Every other option takes effect as in ``cosmo_tpu``, ``verbose_timing``,
 ``adaptive_rho_interval=0`` (the timed probe), ``mixed_precision`` (the
-polar projection's products as three TF32 passes during the loose phase)
-and a custom
-KKT solver included; the amortized and ``jacobi_mm`` backends are not
-ported yet and raise ``NotImplementedError`` when a solve uses them.
+polar projection's products as three TF32 passes during the loose phase),
+a custom KKT solver and every ``eigh_backend`` (the amortized one through
+the kernels of ``ops/jacobi_eig.py`` on a CUDA device, ``jacobi_mm`` as
+batched products) included.
 """
 from __future__ import annotations
 

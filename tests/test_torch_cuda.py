@@ -559,19 +559,89 @@ def test_jacobi_eig_large_kernel_matches_plain_on_card(cuda, dtype, tol):
 def test_amortized_solve_with_a_large_side_on_card(cuda):
     """block_sdp(1, 56, 12) with the amortized backend and psd_pad_to=1 (one
     [1, 56] bucket) on the card in float64, against the same solve on the
-    CPU (objective within 1e-6 relative); jacobi_eig_large launched once a
-    projection, jacobi_eig never."""
+    CPU (objective within 1e-6 relative); jacobi_eig_cluster (kernel_for's
+    kernel at side 56) launched once a projection, no other Jacobi
+    kernel."""
     P, q, A, b, sets = problems.block_sdp(n_blocks=1, side=56, n=12, seed=5)
     s = pt.Settings(eps_abs=1e-5, eps_rel=1e-5, eigh_backend="amortized", psd_pad_to=1,
                     dtype=np.float64)
     JE.reset_counts()
     model = pt.Model(s)
     res = model.set(P, q, A, b, sets).optimize()
-    assert JE.launches_of("jacobi_eig_large") == model.last_solve["projections"] > 0
-    assert JE.launches_of("jacobi_eig") == 0
+    assert JE.kernel_for(56, torch.float64) == "jacobi_eig_cluster"
+    assert JE.launches_of("jacobi_eig_cluster") == model.last_solve["projections"] > 0
+    assert JE.launches_of("jacobi_eig") == JE.launches_of("jacobi_eig_large") == 0
     full = JE.full_sweep_counts(cuda)
-    assert full[("jacobi_eig_large", 56, "float64")] <= model.last_solve["projections"]
-    assert sum(full.values()) == full[("jacobi_eig_large", 56, "float64")]
+    assert full[("jacobi_eig_cluster", 56, "float64")] <= model.last_solve["projections"]
+    assert sum(full.values()) == full[("jacobi_eig_cluster", 56, "float64")]
+    ref = pt.Model(s, device="cpu").set(P, q, A, b, sets).optimize()
+    assert res.status == ref.status == "Solved"
+    assert abs(res.obj_val - ref.obj_val) <= 1e-6 * abs(ref.obj_val)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_jacobi_eig_cluster_kernel_matches_plain_on_card(cuda, dtype):
+    """The cluster kernel (jacobi_eig_cluster) against its plain version
+    through its launcher, k in {2, 50, 64, 130, 258}, B in {1, 3}, warm (2
+    sweeps) and stale (8 sweeps, from I) as the staleness rule classes
+    them, at every cluster size whose CTAs hold W (up to 16 the card
+    schedules): the plain version's bits in P and V, one full-sweep tally a
+    stale launch; 0 sweeps give V0 and the reconstruction from diag W."""
+    n_full = torch.zeros(1, dtype=torch.int32, device=cuda)
+    n_stale = 0
+    for k in (2, 50, 64, 130, 258):
+        for B in (1, 3):
+            for warm in (True, False):
+                X, W, V0 = _eig_case(B, k, warm, dtype, cuda, seed=100 * k + B)
+                stale = eigh.amortized_rotate(X, V0)[2]
+                assert bool(stale) != warm, (k, B, warm)
+                ref = JE.jacobi_eig_plain(W, V0, stale, 2, 8)
+                for C in JE._cluster_sizes(k, dtype.itemsize):
+                    n_stale += not warm
+                    got = JE.jacobi_eig_cluster_cuda(W, V0, stale, 2, 8, n_full, cluster=C)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (
+                        k, B, warm, C, _eig_diff(X, got, ref))
+    assert n_full.item() == n_stale
+    _, W, V0 = _eig_case(2, 50, True, dtype, cuda, seed=1)
+    P, V = JE.jacobi_eig_cluster_cuda(W, V0, torch.tensor(False, device=cuda), 0, 0)
+    assert torch.equal(V, V0)
+    assert torch.equal(P, eigh.sym_reconstruct(torch.diagonal(W, dim1=1, dim2=2), V0))
+
+
+@pytest.mark.cuda
+def test_jacobi_eig_cluster_refuses_bad_input_on_card(cuda):
+    """The cluster launcher refuses a side past its bytes (float64 610, the
+    large kernel's), a side of the small kernel and a cluster size the
+    kernel does not launch (a build or launch error raises)."""
+    stale = torch.tensor(False, device=cuda)
+    for k in (610, 16):
+        _, W, V0 = _eig_case(1, k, False, torch.float64, cuda, seed=0)
+        with pytest.raises(ValueError):
+            JE.jacobi_eig_cluster_cuda(W, V0, stale, 2, 8)
+    _, W, V0 = _eig_case(1, 50, False, torch.float64, cuda, seed=0)
+    for C in (3, 32):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            JE.jacobi_eig_cluster_cuda(W, V0, stale, 2, 8, cluster=C)
+
+
+@pytest.mark.cuda
+def test_amortized_solve_through_the_cluster_kernel_on_card(cuda):
+    """block_sdp(3, 64, 24) in float64 with the amortized backend and
+    psd_pad_to=1 (one [3, 64] bucket) on the card against the same solve on
+    the CPU (objective within 1e-6 relative): jacobi_eig_cluster launched
+    once a projection, its tally keyed (kernel, k, dtype)."""
+    P, q, A, b, sets = problems.block_sdp(n_blocks=3, side=64, n=24, seed=7)
+    s = pt.Settings(eps_abs=1e-6, eps_rel=1e-6, eigh_backend="amortized", psd_pad_to=1,
+                    dtype=np.float64)
+    JE.reset_counts()
+    model = pt.Model(s)
+    res = model.set(P, q, A, b, sets).optimize()
+    launches = dict(JE.psd_project_amortized.launches)
+    assert launches == {("jacobi_eig_cluster", 64, "float64"):
+                        model.last_solve["projections"]}
+    assert set(JE.full_sweep_counts(cuda)) >= set(launches)
     ref = pt.Model(s, device="cpu").set(P, q, A, b, sets).optimize()
     assert res.status == ref.status == "Solved"
     assert abs(res.obj_val - ref.obj_val) <= 1e-6 * abs(ref.obj_val)

@@ -3,8 +3,11 @@ cosmo_tpu in float64 on the CPU.
 
 On a CUDA device the amortized projection takes sides 4..48 through the
 kernel ``jacobi_eig``, side 2 and the sides above 48 through
-``jacobi_eig_large`` (``csrc/jacobi_eig_large.cu``), and an odd side
-through the reference's eigh branch. Here: ``compile_cones`` for the card
+``jacobi_eig_cluster`` (``csrc/jacobi_eig_cluster.cu``) where W fits a
+cluster's shared memory and ``jacobi_eig_large``
+(``csrc/jacobi_eig_large.cu``) past that, and an odd side through the
+reference's eigh branch (``tests/test_torch_eig_cluster.py`` holds the
+cluster kernel's scheme). Here: ``compile_cones`` for the card
 at those sides; the plain version (the kernels' function) against the JAX
 projection at k = 2, 50 and 56, warm and stale, within 1e-10 of max |X|;
 the odd side, where the reference ignores the carried basis (ROADMAP Queue
@@ -60,16 +63,19 @@ def _amortized_case(B, k, warm, seed):
     return X, np.linalg.eigh(X)[1] @ R
 
 
-@pytest.mark.parametrize("side,pad,kernel", [
-    (2, 1, "jacobi_eig_large"), (5, 1, None), (56, 1, "jacobi_eig_large"),
-    (896, 8, "jacobi_eig_large"), (48, 8, "jacobi_eig")])
-def test_amortized_compiles_every_side_for_cuda(side, pad, kernel):
+@pytest.mark.parametrize("side,pad,kernels", [
+    (2, 1, ("jacobi_eig_cluster", "jacobi_eig_cluster")), (5, 1, (None, None)),
+    (56, 1, ("jacobi_eig_cluster", "jacobi_eig_cluster")),
+    (896, 8, ("jacobi_eig_cluster", "jacobi_eig_large")),
+    (48, 8, ("jacobi_eig", "jacobi_eig"))])
+def test_amortized_compiles_every_side_for_cuda(side, pad, kernels):
     """compile_cones(eigh_backend="amortized") for the card takes every
     side (side 2, 56 and odd sides appear with psd_pad_to=1, the default
     ladder pads 56 to 64): the same PSD
     buckets as the JAX package's compile_cones and as the port's for the
-    CPU, each side routed to the kernel of ``kernel_for`` (an odd side to
-    none: the reference's eigh branch)."""
+    CPU, each side routed to the kernel of ``kernel_for`` in float32 and
+    float64 (an odd side to none: the reference's eigh branch; 896 fits a
+    cluster in float32, not in float64)."""
     sets = {mod: [mod.PsdConeTriangle(side * (side + 1) // 2),
                   mod.PsdConeTriangle(side * (side + 1) // 2)] for mod in (ct, pt)}
     jc = jcd.compile_cones(sets[ct], psd_pad_to=pad, eigh_backend="amortized")
@@ -79,18 +85,22 @@ def test_amortized_compiles_every_side_for_cuda(side, pad, kernel):
                                device=device)
         assert tc.eigh_backend == jc.eigh_backend == "amortized"
         assert [(b.batch, b.side) for b in tc.psd_buckets] == ref == [(2, side)]
-    assert JE.kernel_for(side) == kernel
+    assert (JE.kernel_for(side, torch.float32), JE.kernel_for(side, torch.float64)) == kernels
 
 
 def test_kernel_for_routes_every_side():
-    """Even 4..48 to jacobi_eig, 2 and every even side above 48 to
-    jacobi_eig_large, odd sides to none, each named kernel with its
+    """Even 4..48 to jacobi_eig, 2 and the even sides above 48 to
+    jacobi_eig_cluster while W fits a cluster and to jacobi_eig_large past
+    that (up to 65,536), odd sides to none, each named kernel with its
     launcher; the launchers refuse CPU tensors and odd sides before any
     build."""
-    assert [JE.kernel_for(k) for k in (2, 3, 4, 47, 48, 49, 50, 258, 65536, 65538)] == [
-        "jacobi_eig_large", None, "jacobi_eig", None, "jacobi_eig", None,
-        "jacobi_eig_large", "jacobi_eig_large", "jacobi_eig_large", None]
-    assert set(JE.LAUNCHERS) == {"jacobi_eig", "jacobi_eig_large"}
+    for dtype in (torch.float32, torch.float64):
+        assert [JE.kernel_for(k, dtype)
+                for k in (2, 3, 4, 47, 48, 49, 50, 258, 1024, 65536, 65538)] == [
+            "jacobi_eig_cluster", None, "jacobi_eig", None, "jacobi_eig", None,
+            "jacobi_eig_cluster", "jacobi_eig_cluster", "jacobi_eig_large",
+            "jacobi_eig_large", None]
+    assert set(JE.LAUNCHERS) == {"jacobi_eig", "jacobi_eig_cluster", "jacobi_eig_large"}
     stale = torch.tensor(True)
     for k in (5, 50):
         W = torch.as_tensor(sym_stack(1, k, seed=k))
@@ -98,13 +108,15 @@ def test_kernel_for_routes_every_side():
             JE.jacobi_eig_cuda(W, W.clone(), stale, 2, 8)
         with pytest.raises(ValueError):
             JE.jacobi_eig_large_cuda(W, W.clone(), stale, 2, 8)
+        with pytest.raises(ValueError):
+            JE.jacobi_eig_cluster_cuda(W, W.clone(), stale, 2, 8)
 
 
 def test_full_sweep_tallies_by_kernel_side_and_type():
     """One full-sweep tally for each key of the launch counter (kernel, k,
     dtype name) on each device: read together by key, zeroed by
     reset_counts."""
-    big, small = ("jacobi_eig_large", 896, "float32"), ("jacobi_eig", 16, "float64")
+    big, small = ("jacobi_eig_cluster", 896, "float32"), ("jacobi_eig", 16, "float64")
     JE.reset_counts()
     JE._tally(big, "cpu").add_(3)
     JE._tally(small, "cpu").add_(1)

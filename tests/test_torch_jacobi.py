@@ -98,8 +98,11 @@ def test_library_path_hashes_the_included_headers(tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(cuda_build.CSRC, csrc)
     for name in cuda_build.JACOBI_SOURCES:
-        # the large-side kernel shares no code with the round-parallel design
-        headers = [] if name == "jacobi_eig_large.cu" else ["jacobi_rounds.cuh"]
+        # the large-side kernels share their rounding, not the round-parallel
+        # design
+        headers = (["jacobi_rn.cuh"] if name in ("jacobi_eig_large.cu",
+                                                 "jacobi_eig_cluster.cu")
+                   else ["jacobi_rounds.cuh"])
         assert [p.name for p in cuda_build._sources(csrc / name)] == [name, *headers]
 
     def path():
@@ -119,7 +122,11 @@ def test_library_path_hashes_the_included_headers(tmp_path):
     assert edited_smem not in (before, edited)
     large = csrc / "jacobi_eig_large.cu"
     large.write_text(large.read_text() + "\n// edited\n")
-    assert path() not in (before, edited, edited_smem)
+    edited_large = path()
+    assert edited_large not in (before, edited, edited_smem)
+    rn = csrc / "jacobi_rn.cuh"
+    rn.write_text(rn.read_text() + "\n// edited\n")
+    assert path() not in (before, edited, edited_smem, edited_large)
 
 
 _FAKE_NVCC = """#!{python}

@@ -3,7 +3,11 @@
 
     python3 chip_smoke.py [--out DIR] [--seed N]
 
-Phases, in order; any failure ends the run with a non-zero exit code:
+Phases, in order, except that phases 7 and 11 run each in a process of
+its own on the card while this one runs phases 8, 10c, 10d and 10g (before
+9 and the rest of 10): these wait on the host far more than on the card,
+and the rates they report are those of a shared card. Any failure ends the
+run with a non-zero exit code:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions;
@@ -12,9 +16,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ``cosmo_tpu_torch/csrc/jacobi_proj.cu``, ``jacobi_proj_rr.cu``,
    ``jacobi_eig.cu``, ``jacobi_smem.cu``, ``jacobi_eig_cluster.cu`` and
    ``jacobi_eig_large.cu``, the exp/pow cone projection's from
-   ``exp_pow_proj.cu``; prints the ptxas reports and fails if any Jacobi
-   register body instantiation (``jacobi_proj_regs``) has a stack frame
-   or spills, or an exp/pow or cluster-kernel instantiation spills;
+   ``exp_pow_proj.cu`` (and beside them the exp kernel's counting build,
+   ``profile_exp.profile_library``, ``-DEXP_PROJ_PROFILE``); prints the ptxas reports and fails if
+   any Jacobi register body instantiation (``jacobi_proj_regs``) has a
+   stack frame or spills, or an exp/pow or cluster-kernel instantiation
+   spills;
 3. kernel: holds the round-robin and the slot-rotation Jacobi projection
    kernels against their plain PyTorch versions on the card (float32 and
    float64, k in {4, 6, ..., 16, 24, 32, 48}, B in {1, 512, 2498, 8540},
@@ -23,7 +29,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and ``torch.linalg.eigh`` yardstick with CUDA events; then the exp/pow
    kernel against its plain version (float32 and float64, primal and dual
    rows of all four cases, pow at alpha 0.3, 0.5, 0.8, N in {1, 1000,
-   65122}), timed and bounded at N = 65,122;
+   65122}; every exp row at the plain version's bits), timed and bounded
+   at N = 65,122, with the exp rows' case mix and lane efficiency (the
+   kernel's, from its counting build's warp passes, and one thread a
+   row's, reckoned from the plain version's per-row counts);
 4. slice: solves ``problems.block_sdp(512, 16, 512, seed=0)`` with CSR A
    through ``Model.optimize`` on the card with plain ADMM, in float64 and
    float32 (a first solve, then a second on the same model), against the
@@ -48,7 +57,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    run's time), against the known objective; checks the block KKT, that
    every projection went through ``jacobi_proj``, that the refine latch
    tripped and Anderson accelerated. A second solve on the same model, cut
-   to its first 1,000 iterations for the run's time, profiles 10 plain and
+   to its first 600 iterations for the run's time, profiles 10 plain and
    10 refined iterations (``torch.profiler``) for the device operations an
    iteration, under ``torch.cuda.set_sync_debug_mode("warn")``;
 7. maxcut: the decomposed maxcut SDP of ``bench.py``, float32, one first
@@ -83,7 +92,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    timers finite, positive where the solve ran the phase;
 9. cones: (a) the a9a-shaped logistic regression (65,122 exponential
    cones, float64, defaults, eps 1e-5) against ``logistic_optimum``, the
-   exp kernel on every projection; (b) ``block_sdp(8, 256, 256)`` with
+   exp kernel on every projection, whose rows the script records (it wraps
+   ``exp_pow_proj.project_exp``): at the first, middle and last projection
+   the kernel is held to the plain version's bits, timed, and its case
+   mix, evaluations, Newton lane steps, lane efficiency and bound logged;
+   (b) ``block_sdp(8, 256, 256)`` with
    mixed precision in float32 against ``REF_BLOCK8X256``, its loose phase
    ending, and the loose phase's iter/s against full float32 at fixed
    work; (c) 2,048 3-qubit state estimates through the complex PSD cone
@@ -125,7 +138,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 11. mesh: ``Model.optimize(mesh=parallel.make_mesh())`` on ranks it spawns
    (gloo on the loopback, each process group with a 300 s time limit), after
    the unsharded references: (a) maxcut-10k at ``_bench_maxcut10k``'s
-   settings with plain ADMM for 100 iterations on 2 gloo ranks that share
+   settings with plain ADMM for 50 iterations on 2 gloo ranks that share
    the card, x and s within rtol 2e-4, atol 1e-5 of the unsharded run,
    each rank's [4270, 8] share of the side-8 bucket through ``jacobi_proj``
    on every projection (the launch counters) and the [1, 896] colpad
@@ -162,9 +175,10 @@ REF_BANDED = 26934.834386732622
 NORTHSTAR = dict(eps_abs=1e-5, eps_rel=1e-5, max_iter=20000, decompose=True)
 # the profiled windows of phases 6 and 7: WINDOW plain iterations from the
 # 100th and WINDOW after the refine latch; phase 6's profiled second solve
-# stops at PROFILED_ITERS (its latch trips at iteration 475)
+# stops at PROFILED_ITERS (its latch trips at iteration 475), cut there for
+# the run's time
 WINDOW = 10
-PROFILED_ITERS = 1000
+PROFILED_ITERS = 600
 # bench.py _bench_maxcut_default and _bench_maxcut10k
 MAXCUT_DEFAULT = dict(eps_abs=1e-5, eps_rel=1e-5, max_iter=20000, decompose=True,
                       dtype=np.float32)
@@ -234,10 +248,11 @@ BANDED_PLAIN = dict(decompose=True, accelerator=None, dtype=np.float64,
                     eps_abs=1e-5, eps_rel=1e-5, max_iter=20000)
 # phase 11: the mesh on gloo ranks that share the card (11a, 11b) and on a
 # one-rank NCCL group (11c). 11a: maxcut-10k at _bench_maxcut10k's settings
-# with plain ADMM and a fixed 100 iterations, held to the unsharded run at
-# the dryrun's float32 limits (__graft_entry__.py:101-110)
+# with plain ADMM and a fixed 50 iterations (cut for the run's time), held
+# to the unsharded run at the dryrun's float32 limits
+# (__graft_entry__.py:101-110)
 MESH_RANKS = 2
-MAXCUT10K_MESH = dict(MAXCUT10K, accelerator=None, max_iter=100)
+MAXCUT10K_MESH = dict(MAXCUT10K, accelerator=None, max_iter=50)
 MESH_RTOL, MESH_ATOL = 2e-4, 1e-5
 # 11c: the banded SDP for a fixed 200 iterations, within 1e-9 relative
 NCCL_ITERS = 200
@@ -301,10 +316,18 @@ def phase_build():
     The Jacobi register body keeps X and V in registers: an instantiation
     with a stack frame or a spill would put them in local memory, so it
     fails the build; so does a spill in the exp/pow kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cosmo_tpu_torch import profile_exp
     from cosmo_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    so, so_cones = cuda_build.build_all()
+    # the exp kernel's counting build (its warp passes, for the lane
+    # efficiency of phases 3 and 9a) beside the two libraries
+    with ThreadPoolExecutor(1) as pool:
+        counting = pool.submit(profile_exp.profile_library)
+        so, so_cones = cuda_build.build_all()
+        counting.result()
     seconds = time.perf_counter() - t0
     log(f"[build] {so.name} {so_cones.name}")
     report = so.with_suffix(".log").read_text()
@@ -747,6 +770,75 @@ def phase_maxcut(device, smi):
     return out
 
 
+def _beside_process(name, phase, args, out_dir):
+    """The body of a :class:`Beside` process (spawned): ``phase(cuda,
+    *args)`` with its log lines sent to ``out_dir/<name>.log`` and its
+    result and seconds to ``out_dir/<name>.json``. It leads a process group
+    of its own, so that :meth:`Beside.stop` also ends the processes it
+    starts."""
+    import traceback
+
+    import torch
+
+    os.setpgrp()
+    sys.stdout = open(os.path.join(out_dir, f"{name}.log"), "w", buffering=1)
+    t = time.perf_counter()
+    try:
+        out = phase(torch.device("cuda"), *args)
+    except BaseException:
+        traceback.print_exc(file=sys.stdout)
+        raise
+    with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+        json.dump(dict(out=out, seconds=time.perf_counter() - t), f, default=str)
+
+
+class Beside:
+    """A phase in a spawned process on the card, beside what the caller
+    runs until :meth:`result`. Phases 7 and 11 wait on the host far more
+    than on the card, so they run so, beside each other and beside 8,
+    10c, 10d and 10g; the rates of all of them are those of a shared
+    card. A failure on either side fails the run, and :meth:`stop` ends
+    the process on every way out."""
+
+    def __init__(self, name, phase, *args):
+        import multiprocessing as mp
+        import tempfile
+
+        self.name = name
+        self.dir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+        self.proc = mp.get_context("spawn").Process(
+            target=_beside_process, args=(name, phase, args, self.dir))
+        self.proc.start()
+
+    def result(self, timeout):
+        """Waits up to ``timeout`` s for the process; prints its log lines
+        and returns (the phase's result, its seconds)."""
+        self.proc.join(timeout)
+        path = os.path.join(self.dir, f"{self.name}.log")
+        if os.path.isfile(path):
+            with open(path) as f:
+                for line in f:
+                    log(line.rstrip("\n"))
+        if self.proc.is_alive() or self.proc.exitcode != 0:
+            raise AssertionError(f"{self.name}: its process ended with "
+                                 f"{self.proc.exitcode} (alive {self.proc.is_alive()})")
+        with open(os.path.join(self.dir, f"{self.name}.json")) as f:
+            got = json.load(f)
+        return got["out"], got["seconds"]
+
+    def stop(self):
+        import shutil
+        import signal
+
+        if self.proc.is_alive():
+            try:
+                os.killpg(self.proc.pid, signal.SIGTERM)
+            except OSError:         # not yet the leader of its group
+                self.proc.terminate()
+        self.proc.join()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
 def portfolio_checks(P, q, A, b, k, res, opt, eps=PORTFOLIO["eps_abs"]):
     """float64 host checks of a portfolio solution z = [x; y]: against the
     solver's own stopping rule (unscaled inf-norms, eps_abs = eps_rel =
@@ -1001,8 +1093,10 @@ def phase_known_answers(device):
 
 
 # the exp/pow kernel vs its plain version, relative to max |V| (tests/
-# test_torch_cuda.py): float64 the same operations, CUDA's log, exp and pow
-# other in the last bits; float32 exp to 1e-4; float32 pow to 1e-4 on all
+# test_torch_cuda.py; every exp row must also have the plain version's
+# bits, both taking CUDA's log and exp): float64 the same operations,
+# CUDA's log, exp and pow other in the last bits; float32 exp to 1e-4;
+# float32 pow to 1e-4 on all
 # but 1 row in 1,000, where the reference's float32 Newton keeps no digit
 # (phic's square root cancels: its float32 and float64 runs differ by up
 # to 1.4 there, and a host build of the kernel body differs from the plain
@@ -1019,20 +1113,6 @@ EXP_OPS = dict(newton=24, evals=23, rows=20)
 POW_OPS = dict(newton=47, evals=25, rows=45)
 
 
-def cone_points(n, dtype, device, seed):
-    """Rows covering the four cases of both projections (a Gaussian times
-    a scale from e^-3 to e^3 a row, every 20th row with |z| = 1e-9), half
-    dual, tolerances 1e-8 and 1e-6, made from ``seed``."""
-    import torch
-
-    rng = np.random.default_rng(seed)
-    V = rng.standard_normal((n, 3)) * np.exp(rng.uniform(-3, 3, (n, 1)))
-    V[::20, 2] = 1e-9 * np.sign(V[::20, 2])
-    to = dict(dtype=dtype, device=device)
-    return (torch.as_tensor(V, **to), torch.as_tensor(rng.random(n) < 0.5, device=device),
-            torch.as_tensor(np.where(rng.random(n) < 0.5, 1e-8, 1e-6), **to))
-
-
 def cone_bound_ms(stats, ops, n, dtype_name, with_alpha):
     """Least time of a projection on an H100: the larger of its operations
     (``stats`` of the plain version on these rows, ``ops`` a unit) at the
@@ -1045,21 +1125,49 @@ def cone_bound_ms(stats, ops, n, dtype_name, with_alpha):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def exp_work(V, dual, tol, got, ref, stats, lib, max_iter=100):
+    """The exp kernel's rows ``got`` against the plain version's ``ref``
+    (``stats``: its work, per row too) on the rows (V, dual, tol): the rows
+    whose bits differ, the case mix, and the lane efficiency (Newton lane
+    steps over 32 times the warp passes) of the kernel (its counting build
+    ``lib``, one launch) and of one thread a row (reckoned from the per-row
+    counts)."""
+    from cosmo_tpu_torch import profile_exp as PE
+
+    _, passes, steps = PE.counted_launch(lib, V, dual, tol, max_iter)
+    return dict(rows_differing=PE.differing_rows(got, ref), cases=PE.case_mix(V, dual),
+                warp_passes=passes, lane_steps=steps,
+                lane_efficiency=PE.lane_efficiency(stats.get("newton", 0), passes),
+                lane_efficiency_one_thread=PE.thread_layout_efficiency(stats["row_newton"]))
+
+
+def exp_work_text(row):
+    return (f"cases 1-4 {row['cases']}, rows differing {row['rows_differing']}, lane "
+            f"efficiency {row['lane_efficiency']:.4f} ({row['warp_passes']} warp passes, "
+            f"{row['lane_steps']} lane steps; one thread a row "
+            f"{row['lane_efficiency_one_thread']:.4f})")
+
+
 def phase_cone_kernel(device, sizes=CONE_SIZES, reps=10):
     """The exp/pow kernel vs its plain version: float32 and float64, primal
     and dual rows, pow at alpha in ``CONE_ALPHAS``, N in ``sizes``. At the
-    largest N (the 9a path's exp cones) each entry is timed (kernel
-    ``launch_ms`` and ``device_ms``, plain ``launch_ms``) and bounded."""
+    largest N (the 9a path's count of exp cones) each entry is timed
+    (kernel ``launch_ms`` and ``device_ms``, plain ``launch_ms``) and
+    bounded. Every exp row must have the plain version's bits; the exp
+    rows' case mix and lane efficiencies (:func:`exp_work`) are logged."""
     import torch
+    from cosmo_tpu_torch import profile_exp as PE
     from cosmo_tpu_torch.kernel_timing import device_ms, launch_ms
     from cosmo_tpu_torch.ops import exp_pow as E
     from cosmo_tpu_torch.ops import exp_pow_proj as K
+
+    counting = PE.profile_library()
 
     rows = []
     for dtype_name in ("float32", "float64"):
         dtype = getattr(torch, dtype_name)
         for n in sizes:
-            V, dual, tol = cone_points(n, dtype, device, seed=n)
+            V, dual, tol = PE.cone_points(n, dtype, device, seed=n)
             scale = V.abs().max().item()
             timed = n == max(sizes)
             cases = [("exp", None)] + [("pow", a) for a in CONE_ALPHAS]
@@ -1074,7 +1182,8 @@ def phase_cone_kernel(device, sizes=CONE_SIZES, reps=10):
                 got = launch(*args, it)
                 torch.cuda.synchronize()
                 stats = {}
-                ref = plain(*args, it, stats=stats)
+                ref = plain(*args, it, stats=stats,
+                            **(dict(per_row=True) if family == "exp" else {}))
                 # a NaN where the plain version has one is agreement
                 nan_same = bool(torch.equal(torch.isnan(got), torch.isnan(ref)))
                 diff = torch.where(torch.isnan(got) & torch.isnan(ref), 0.0, got - ref)
@@ -1086,6 +1195,10 @@ def phase_cone_kernel(device, sizes=CONE_SIZES, reps=10):
                 else:
                     ok = over == 0
                 ok = ok and nan_same
+                work = (exp_work(V, dual, tol, got, ref, stats, counting)
+                        if family == "exp" else {})
+                ok = ok and work.get("rows_differing", 0) == 0
+                stats = {k: v for k, v in stats.items() if not k.startswith("row_")}
                 bound_ms, bound_by = cone_bound_ms(stats, ops, n, dtype_name,
                                                    family == "pow")
                 row = dict(kernel=f"exp_pow_proj/{family}", dtype=dtype_name, N=n,
@@ -1097,14 +1210,15 @@ def phase_cone_kernel(device, sizes=CONE_SIZES, reps=10):
                                       if timed else None),
                            plain_ms=(launch_ms(lambda: plain(*args, it), 2) if timed
                                      else None),
-                           library_ms=None)
+                           library_ms=None, **work)
                 rows.append(row)
                 times = ("" if not timed else f" ms={row['ms']:.4f} device="
                          f"{row['device_ms']:.4f} plain={row['plain_ms']:.2f}")
                 log(f"[kernel] exp_pow_proj/{family}{'' if a is None else f' a={a}'} "
                     f"{dtype_name} N={n:5d} err={err:.3e} (tol {CONE_TOL[dtype_name]:.0e}"
                     f"*{scale:.2f}, rows over {over}) lane work {stats}{times} "
-                    f"bound={bound_ms:.5f} ({bound_by}) {'ok' if ok else 'FAIL'}")
+                    f"bound={bound_ms:.5f} ({bound_by})"
+                    f"{'; ' + exp_work_text(row) if work else ''} {'ok' if ok else 'FAIL'}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"the exp/pow kernel disagrees with its plain version: {bad}")
@@ -1249,7 +1363,7 @@ def phase_logistic(device, smi, seed):
     residual: both packages land 1.9e-4 below at the example's size)."""
     import cosmo_tpu_torch as pt
     from cosmo_tpu_torch import problems
-    from cosmo_tpu_torch.ops import exp_pow_proj as K
+    from cosmo_tpu_torch import profile_exp as PE
 
     n, d = LOGISTIC["n_samples"], LOGISTIC["n_features"]
     t0 = time.perf_counter()
@@ -1260,7 +1374,10 @@ def phase_logistic(device, smi, seed):
     f_opt, _ = problems.logistic_optimum(Z, y, LOGISTIC["lam"])
     opt_s = time.perf_counter() - t0
     model = pt.Model(pt.Settings(**LOGISTIC_SETTINGS), device=device).set(P, q, A, b, sets)
-    res, counts = counted_optimize(model)
+    # the solve's first, middle and last exp stacks, kept by reference (no
+    # copy, no device work, three stacks' memory)
+    with PE.recorded_exp_stacks(keep=(0, PE.PATH_MIDDLE)) as stacks:
+        res, counts = counted_optimize(model)
     info = model.last_solve
     x = res.x
     loss, g = problems.logistic_loss(Z, y, LOGISTIC["lam"], x[:d])
@@ -1287,12 +1404,73 @@ def phase_logistic(device, smi, seed):
         f"{info['projections']}, generated {gen_s:.2f} s, optimum {opt_s:.2f} s [{smi}]")
     if res.status != "Solved":
         raise AssertionError(f"9a: {res.status}")
-    if not counts["exp_pow_proj/exp"] == info["projections"] > 0:
+    if not counts["exp_pow_proj/exp"] == info["projections"] == stacks["n"] > 0:
         raise AssertionError(f"9a: {counts} launches for {info['projections']} projections")
     if not (abs(out["loss_rel_err"]) <= 1e-4 and out["grad_ratio"] <= 1e-3
             and abs(res.obj_val - f_opt) <= 2.0 * gap + 1e-9 * f_opt):
         raise AssertionError(f"9a: {out}")
+    out["path_rows"] = exp_path_rows(stacks, smi)
     return out
+
+
+# 9a's stacks on which the exp kernel is held to its plain version and
+# timed: its first, middle and last projection
+PATH_STACKS = ("first", "middle", "last")
+
+
+def exp_path_rows(stacks, smi, reps=10):
+    """The exp kernel on 9a's own rows (``stacks``, a
+    ``profile_exp.recorded_exp_stacks`` record) at its first, middle and
+    last projection: every row at the plain version's bits, the kernel
+    timed (``launch_ms``, ``device_ms``; on the middle one the plain
+    version's checking call too, work counts and all), the case mix,
+    evaluations, Newton lane steps, lane efficiencies (:func:`exp_work`)
+    and the bound."""
+    import torch
+    from cosmo_tpu_torch import profile_exp as PE
+    from cosmo_tpu_torch.kernel_timing import device_ms, launch_ms
+    from cosmo_tpu_torch.ops import exp_pow as E
+    from cosmo_tpu_torch.ops import exp_pow_proj as K
+
+    counting = PE.profile_library()
+    dual, tol, it = stacks["is_dual"], stacks["tol"], stacks["max_iter"]
+    n_proj = stacks["n"]
+    if n_proj <= PE.PATH_MIDDLE + 1:
+        raise AssertionError(f"9a: {n_proj} projections, none past the middle stack "
+                             f"{PE.PATH_MIDDLE}")
+    rows = []
+    for name, k in zip(PATH_STACKS, (0, PE.PATH_MIDDLE, n_proj - 1)):
+        V = PE.recorded_stack(stacks, k)
+        got = K.exp_proj_cuda(V, dual, tol, it)
+        torch.cuda.synchronize()
+        stats = {}
+        # the plain version (~2 s a call) is timed by its checking call, on
+        # the kernels line's stack
+        t = time.perf_counter()
+        ref = E.project_exp_plain(V, dual, tol, it, stats=stats, per_row=True)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t) if name == "middle" else None
+        work = exp_work(V, dual, tol, got, ref, stats, counting, it)
+        stats = {key: v for key, v in stats.items() if not key.startswith("row_")}
+        diff = torch.where(torch.isnan(got) & torch.isnan(ref), 0.0, got - ref)
+        bound_ms, bound_by = cone_bound_ms(stats, EXP_OPS, V.shape[0], "float64", False)
+        row = dict(stack=name, projection=k, of=n_proj, N=V.shape[0],
+                   max_abs_err=diff.abs().max().item(), max_abs_x=V.abs().max().item(),
+                   stats=stats, bound_ms=bound_ms, bound_by=bound_by,
+                   ms=launch_ms(lambda: K.exp_proj_cuda(V, dual, tol, it), reps),
+                   device_ms=device_ms(lambda: K.exp_proj_cuda(V, dual, tol, it), reps),
+                   plain_ms=plain_ms, **work)
+        rows.append(row)
+        log(f"[cones] 9a exp rows, projection {k} of {n_proj} (N={V.shape[0]}, float64): "
+            f"err {row['max_abs_err']:.3e}, {exp_work_text(row)}, evaluations "
+            f"{stats.get('evals', 0)}, Newton lane steps {stats.get('newton', 0)}, "
+            f"ms={row['ms']:.4f} device={row['device_ms']:.4f}"
+            f"{'' if plain_ms is None else f' plain={plain_ms:.2f}'} bound="
+            f"{bound_ms:.5f} ({bound_by}) [{smi}]")
+    bad = [r for r in rows if r["rows_differing"]]
+    if bad:
+        raise AssertionError(f"9a: the exp kernel leaves the plain version's bits: {bad}")
+    return rows
 
 
 def phase_mixed(device, smi, fixed_iters=150):
@@ -1408,7 +1586,7 @@ BLOCK8X256_AMORTIZED = dict(accelerator=None, adaptive_rho=False, check_terminat
                             scaling=10, decompose=False, eps_abs=1e-5, eps_rel=1e-5,
                             max_iter=20000, dtype=np.float64, eigh_backend="amortized")
 # 10g: maxcut-10k at _bench_maxcut10k's settings with plain ADMM and the
-# amortized backend for a fixed 100 iterations (11a's depth)
+# amortized backend for a fixed 100 iterations
 MAXCUT10K_AMORTIZED = dict(MAXCUT10K, accelerator=None, eigh_backend="amortized",
                            max_iter=100)
 # 10h: block_sdp(1, 640, 64) at REF_BLOCK8X256's plain settings in float64
@@ -2019,16 +2197,14 @@ def phase_large_side_amortized(device, smi):
 
 
 def phase_backends(device, smi):
-    """10a-10h."""
+    """10a, 10b, 10e, 10f and 10h (10c, 10d and 10g run beside phases 7
+    and 11)."""
     out = {}
     for name, run in (("eig_kernel", lambda: phase_eig_kernel(device)),
                       ("amortized", lambda: phase_amortized(device, smi)),
-                      ("jacobi_mm", lambda: phase_jacobi_mm(device, smi)),
-                      ("examples", lambda: phase_examples(device)),
                       ("eig_large_kernel", lambda: phase_eig_large_kernel(device)),
                       ("block8x256_amortized",
                        lambda: phase_block8x256_amortized(device, smi)),
-                      ("maxcut_amortized", lambda: phase_maxcut_amortized(device, smi)),
                       ("large_side_amortized",
                        lambda: phase_large_side_amortized(device, smi))):
         t = time.perf_counter()
@@ -2142,7 +2318,7 @@ def phase_mesh(device, smi, banded_single, banded_x):
     import cosmo_tpu_torch as pt
     from cosmo_tpu_torch import problems
 
-    # the unsharded references first, alone on the card
+    # the unsharded references first, before the ranks start
     P, q, A, b, sets, _ = problems.maxcut(10000, 4.0 / 10000, seed=0, sparse=True)
     maxcut_ref = pt.Model(pt.Settings(**MAXCUT10K_MESH), device=device).set(
         P, q, A, b, sets).optimize()
@@ -2281,13 +2457,29 @@ def main(argv=None):
     plugins = timed("plugins", lambda: phase_plugins(device, smi))
     decomposed = timed("decomposed", lambda: phase_decomposed(device, smi))
     default = timed("default", lambda: phase_default(device, smi))
-    maxcut = timed("maxcut", lambda: phase_maxcut(device, smi))
-    cg = timed("cg", lambda: phase_cg(device, smi, args.seed))
+    # phases 7 and 11 in processes of their own, beside 8, 10c, 10d and 10g
+    # here (``Beside``)
+    t = time.perf_counter()
+    beside = [Beside("maxcut", phase_maxcut, smi)]
+    try:
+        beside.append(Beside("mesh", phase_mesh, smi, decomposed["jacobi_proj_cold"],
+                             decomposed.pop("x")))
+        cg = timed("cg", lambda: phase_cg(device, smi, args.seed))
+        shared = {name: timed(name, run) for name, run in (
+            ("jacobi_mm", lambda: phase_jacobi_mm(device, smi)),
+            ("examples", lambda: phase_examples(device)),
+            ("maxcut_amortized", lambda: phase_maxcut_amortized(device, smi)))}
+        maxcut, seconds["maxcut"] = beside[0].result(MAXCUT10K["time_limit"] + 300)
+        mesh, seconds["mesh"] = beside[1].result(4 * MESH_TIMEOUT_S)
+    finally:
+        for proc in beside:
+            proc.stop()
+    seconds["shared"] = time.perf_counter() - t
+    log(f"[time] maxcut {seconds['maxcut']:.1f} s and mesh {seconds['mesh']:.1f} s in "
+        f"their processes; the phases on the shared card {seconds['shared']:.1f} s")
     cones = timed("cones", lambda: phase_cones(device, smi, args.seed))
     backends = timed("backends", lambda: phase_backends(device, smi))
-    banded_x = decomposed.pop("x")
-    mesh = timed("mesh", lambda: phase_mesh(device, smi, decomposed["jacobi_proj_cold"],
-                                            banded_x))
+    backends.update(shared)
     seconds["total"] = time.perf_counter() - t0
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
 
@@ -2329,21 +2521,25 @@ def main(argv=None):
             bound_by=row["bound_by"],
             library_ms=row["library_ms"],
         ))
-    # the exp/pow kernel at the 9a path's N (its exp entry in float64, its
-    # pow entry at alpha 0.5 in float64, launched on phase 4's pow cone)
-    for name, alpha, launches in (
-            ("exp_pow_proj/exp", None, cones["logistic"]["launches"]),
-            ("exp_pow_proj/pow", 0.5, plugins["pow_launches"])):
-        n = max(CONE_SIZES)
-        row = next(r for r in kernel_rows if r["kernel"] == name and r["dtype"] == "float64"
-                   and r.get("N") == n and r["alpha"] == alpha)
+    # the exp kernel on the 9a path's own rows (its middle projection,
+    # float64), the pow kernel at the 9a path's N (float64, alpha 0.5,
+    # launched on phase 4's pow cone)
+    n = max(CONE_SIZES)
+    path = next(r for r in cones["logistic"]["path_rows"] if r["stack"] == "middle")
+    pow_row = next(r for r in kernel_rows if r["kernel"] == "exp_pow_proj/pow"
+                   and r["dtype"] == "float64" and r.get("N") == n and r["alpha"] == 0.5)
+    for name, row, launches, shape, where in (
+            ("exp_pow_proj/exp", path, cones["logistic"]["launches"],
+             dict(N=path["N"], dtype="float64", rows=f"9a projection {path['projection']}"),
+             "logistic_a9a"),
+            ("exp_pow_proj/pow", pow_row, plugins["pow_launches"],
+             dict(N=n, dtype="float64", alpha=0.5), "known pow_cone")):
         kernels.append(dict(
             name=name, route="cuda", source="cosmo_tpu_torch/csrc/exp_pow_proj.cu",
-            replaces=("cosmo_tpu/ops/exp_pow.py:133" if alpha is None
+            replaces=("cosmo_tpu/ops/exp_pow.py:133" if name.endswith("exp")
                       else "cosmo_tpu/ops/exp_pow.py:213"),
             launches=launches, max_abs_err=row["max_abs_err"], ms=row["ms"],
-            device_ms=row["device_ms"], shape=dict(N=n, dtype="float64", alpha=alpha),
-            path="logistic_a9a" if alpha is None else "known pow_cone",
+            device_ms=row["device_ms"], shape=shape, path=where,
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=None))
     # the warm-started Jacobi kernel at the 10b path's shape (B = 2498, k =

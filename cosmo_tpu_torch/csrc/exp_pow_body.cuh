@@ -1,13 +1,16 @@
-// The per-cone body of the exponential- and power-cone projection kernel
-// (exp_pow_proj.cu): everything one thread computes for one cone, written
-// so that it also compiles as plain C++ on a host (EP_HD is empty there),
-// where the tests run it beside the plain PyTorch version
-// (cosmo_tpu_torch/ops/exp_pow.py).
+// The arithmetic of the exponential- and power-cone projection kernels
+// (exp_pow_proj.cu), written so that it also compiles as plain C++ on a
+// host (EP_HD is empty there), where the tests run it beside the plain
+// PyTorch version (cosmo_tpu_torch/ops/exp_pow.py).
 //
 // It is the lane function of cosmo_tpu/ops/exp_pow.py (_project_exp_one,
 // :122, and _project_pow_one, :204), which the JAX package runs as one
-// jax.vmap of nested lax.while_loop. Each loop here is a plain loop of one
-// thread, so a cone stops at its own condition, as a vmapped lane does.
+// jax.vmap of nested lax.while_loop. The power cone's is one thread's
+// plain loops (project_pow_row), each stopping at its own condition as a
+// vmapped lane does. The exponential cone's is a step machine (below):
+// its three nested loops flattened into one Newton step a call, with the
+// transitions between them taken by a walk, so that the kernel can run a
+// cone on several lanes and refill a lane as soon as its cone is done.
 //
 // Rounding follows the reference operation by operation:
 // * products and sums are rounded one at a time (the __f*_rn / __d*_rn
@@ -135,91 +138,224 @@ constexpr int kBoundSteps = 90;
 
 template <typename T> struct Vec3 { T x, y, z; };
 
-// ---- exponential cone -----------------------------------------------
-template <typename T> EP_HD T exp_safe(T t) { return exp_(clip(t, (T)-708.0, (T)708.0)); }
+// ---- exponential cone: the step machine -------------------------------
+// _project_exp_one (exp_pow.py:122) as a machine that a lane advances by
+// one step of the inner Newton (_find_min_t, exp_pow.py:49) at a time, so
+// that every lane of a warp runs the same step whatever its cone's phase.
+// A cone (ExpCone) is the same in each of the L = 2^j - 1 lanes it runs
+// on; each of those lanes evaluates g at one node (ExpNode) of the cone's
+// round, rooted at the walk's node:
+// * the bound search (exp_pow.py:91-101): nodes lam, 2 lam, ..., 2^(L-1)
+//   lam, the next doublings;
+// * the bisection (exp_pow.py:103-118): a heap of L nodes, the midpoint at
+//   the root and under each node the next midpoint after g <= 0 (left:
+//   u = node) and after g > 0 (right: l = node).
+// g(lam) depends only on lam and the row (the Newton restarts from
+// max(-t0, tol) every time), so these nodes' values are the serial loop's.
+// The walk (exp_walk) then takes the serial loop's steps through the
+// finished nodes, its stop tests included, on the sign of their g alone,
+// and a new round starts where it leaves the round's nodes; a cone
+// finishes with the last node it took.
 
-// exp_in_cone(v, 0.0) (exp_pow.py:31)
-template <typename T> EP_HD bool exp_in_cone0(T x, T y, T z) {
-  T ys = y > (T)0 ? y : (T)1;
-  bool interior = (y > (T)0) && (mul(y, exp_safe(dv(x, ys))) <= add(z, (T)0));
-  bool boundary = (x <= (T)0) && (y == (T)0) && (z >= -(T)0);
-  return interior || boundary;
+// exp_in_cone(v, 0) and exp_in_dual(-v, 0) (exp_pow.py:31, :40) take
+// the reference's _exp_safe of these; the classification (exp_case) takes
+// both exps.
+template <typename T> EP_HD T exp_clip(T t) { return clip(t, (T)-708.0, (T)708.0); }
+template <typename T> EP_HD T exp_cone_arg(Vec3<T> v) {
+  T ys = v.y > (T)0 ? v.y : (T)1;
+  return exp_clip(dv(v.x, ys));
 }
-
-// exp_in_dual(v, 0.0) (exp_pow.py:40)
-template <typename T> EP_HD bool exp_in_dual0(T x, T y, T z) {
+template <typename T> EP_HD T exp_dual_arg(Vec3<T> v) {
+  T x = -v.x, y = -v.y;
   T xs = x < (T)0 ? x : (T)-1;
-  bool c1 = (x < (T)0) && (sub(mul(-x, exp_safe(dv(y, xs))), mul(euler<T>(), z)) <= (T)0);
+  return exp_clip(dv(y, xs));
+}
+
+// _project_exp_one's case of v: 1 in K_exp, 2 in the polar, 3 the closed
+// form of x < 0, y < 0, 4 the bisection; e_cone and e_dual the exps of
+// exp_cone_arg(v) and exp_dual_arg(v)
+template <typename T> EP_HD int exp_case(Vec3<T> v, T e_cone, T e_dual) {
+  bool interior = (v.y > (T)0) && (mul(v.y, e_cone) <= add(v.z, (T)0));
+  bool boundary = (v.x <= (T)0) && (v.y == (T)0) && (v.z >= -(T)0);
+  if (interior || boundary) return 1;
+  T x = -v.x, y = -v.y, z = -v.z;
+  bool c1 = (x < (T)0) && (sub(mul(-x, e_dual), mul(euler<T>(), z)) <= (T)0);
   bool c2 = (abs_(x) <= (T)0) && (y >= -(T)0) && (z >= -(T)0);
-  return c1 || c2;
+  if (c1 || c2) return 2;
+  if (v.x < (T)0 && v.y < (T)0) return 3;
+  return 4;
 }
 
-// _find_min_t (exp_pow.py:49): the inner Newton for t* given lambda
-template <typename T> EP_HD T find_min_t(double lam, T s0, T t0, T tol) {
-  const T lam_c = (T)lam;
-  const T lam2 = (T)mul(lam, lam);
-  T dt = max_(-t0, tol);
-  bool done = false;
-  for (int k = 0; k < kNewtonSteps && !done; ++k) {
-    T dts = max_(dt, tiny<T>());
-    T f = add(add(sub(dv(mul(dt, add(dt, t0)), lam2), dv(s0, lam_c)),
-                  log_(dv(dts, lam_c))), (T)1);
-    T gf = add(dv(add(mul((T)2, dt), t0), lam2), dv((T)1, dts));
-    T dtn = sub(dt, dv(f, gf));
-    bool hit_low = dtn <= -t0;
-    bool hit_zero = dtn <= (T)0;
-    bool conv = abs_(f) < tol;
-    dt = hit_low ? -t0 : (hit_zero ? (T)0 : dtn);
-    done = hit_low || hit_zero || conv;
-  }
-  return add(dt, t0);
+// the projection of a case 1-3 row
+template <typename T> EP_HD Vec3<T> exp_closed_form(int c, Vec3<T> v) {
+  if (c == 1) return v;
+  if (c == 2) return Vec3<T>{(T)0, (T)0, (T)0};
+  return Vec3<T>{v.x, mul((T)0, v.y), max_(v.z, (T)0)};
 }
 
-// _exp_grad_dual (exp_pow.py:73): g(lambda) and its minimizer (r, s, t)
+// (u + l) / 2 of the bisection: x * 0.5 is x / 2 in every bit (both are
+// the one correctly rounded value of the same real number), without a
+// division
+EP_HD double half(double x) { return mul(x, 0.5); }
+
+// the phases of a cone and the outcomes of a walk
+enum : int { kExpIdle = 0, kExpBound = 1, kExpBisect = 2 };
+enum : int { kExpWait = 0, kExpRestart = 1, kExpFinish = 2 };
+
+template <typename T> struct ExpCone {
+  T r0, s0, t0, tol;   // the row (negated for a dual cone) and its tolerance
+  double l, u, lam;    // the bracket, and the lambda of the walk's node
+  int phase;           // kExpIdle: no row
+  int k;               // doublings taken (bound search), steps taken (bisection)
+  int cur;             // the walk's node in this round
+  int row;
+  bool dual;
+};
+
+template <typename T> struct ExpNode {
+  T lam_c, lam2, s0_lam;  // lam rounded to T, lam^2 in double rounded, s0 / lam
+  T dt;                   // the Newton's iterate
+  int steps;
+  bool done;              // the Newton has ended
+  bool up;                // then: g > 0
+};
+
+// a case-4 row (u: the row, negated for a dual cone): the bound search
+// from lam = 0.125, l = 0
 template <typename T>
-EP_HD T exp_grad_dual(double lam, T r0, T s0, T t0, T tol, Vec3<T>* sol) {
-  const T lam_c = (T)lam;
-  T t = find_min_t(lam, s0, t0, tol);
+EP_HD void exp_cone_start(ExpCone<T>& c, Vec3<T> u, T tol, bool dual, int row) {
+  c.r0 = u.x;
+  c.s0 = u.y;
+  c.t0 = u.z;
+  c.tol = tol;
+  c.l = 0.0;
+  c.u = 0.0;
+  c.lam = 0.125;
+  c.phase = kExpBound;
+  c.k = 0;
+  c.cur = 0;
+  c.row = row;
+  c.dual = dual;
+}
+
+// the lambda of node pos of a round rooted at the walk's node: in the
+// bound search its pos-th doubling, in the bisection the heap's node
+// (1-based index p: children 2p, left, and 2p + 1, right)
+template <typename T> EP_HD double exp_node_lam(const ExpCone<T>& c, int pos) {
+  if (c.phase == kExpBound) {
+    double lam = c.lam;
+    for (int i = 0; i < pos; ++i) lam = mul(lam, 2.0);
+    return lam;
+  }
+  const int p = pos + 1;
+  double lo = c.l, hi = c.u;
+#pragma unroll
+  for (int b = 4; b >= 0; --b) {
+    if ((p >> (b + 1)) == 0) continue;  // above the node's depth
+    double m = half(add(hi, lo));
+    if ((p >> b) & 1) lo = m;
+    else hi = m;
+  }
+  return half(add(hi, lo));
+}
+
+// a node's Newton from its start (exp_pow.py:51)
+template <typename T> EP_HD void exp_node_start(ExpNode<T>& n, const ExpCone<T>& c, double lam) {
+  n.lam_c = (T)lam;
+  n.lam2 = (T)mul(lam, lam);
+  n.s0_lam = dv(c.s0, n.lam_c);
+  n.dt = max_(-c.t0, c.tol);
+  n.steps = 0;
+  n.done = false;
+  n.up = false;
+}
+
+// the argument of the log in a Newton step
+template <typename T> EP_HD T exp_newton_arg(const ExpNode<T>& n) {
+  return dv(max_(n.dt, tiny<T>()), n.lam_c);
+}
+
+// one step of _find_min_t (exp_pow.py:58-67), lg = log(exp_newton_arg(n));
+// true where the step ends the node's Newton (its stop tests, or the 150th
+// step)
+template <typename T> EP_HD bool exp_newton_step(ExpNode<T>& n, T t0, T tol, T lg) {
+  const T dt = n.dt;
+  T dts = max_(dt, tiny<T>());
+  T f = add(add(sub(dv(mul(dt, add(dt, t0)), n.lam2), n.s0_lam), lg), (T)1);
+  T gf = add(dv(add(mul((T)2, dt), t0), n.lam2), dv((T)1, dts));
+  T dtn = sub(dt, dv(f, gf));
+  bool hit_low = dtn <= -t0;
+  bool hit_zero = dtn <= (T)0;
+  bool conv = abs_(f) < tol;
+  n.dt = hit_low ? -t0 : (hit_zero ? (T)0 : dtn);
+  n.steps += 1;
+  return hit_low || hit_zero || conv || n.steps >= kNewtonSteps;
+}
+
+// _exp_grad_dual's minimizer (r, s, t) (exp_pow.py:75-77) at a node's dt
+// (r0, t0: the cone's row)
+template <typename T> EP_HD Vec3<T> exp_node_sol(T r0, T t0, T dt, T lam_c) {
+  T t = add(dt, t0);
   T s = dv(mul(sub(t, t0), t), lam_c);
   T r = sub(r0, lam_c);
-  T g = s == (T)0 ? r
-                  : add(r, mul(s, log_(dv(max_(s, tiny<T>()), max_(t, tiny<T>())))));
-  sol->x = r;
-  sol->y = s;
-  sol->z = t;
-  return g;
+  return Vec3<T>{r, s, t};
 }
 
-// _project_exp_case4 (exp_pow.py:85): the bound search, one bisection
-// step, then the bisection while u - l >= tol
+// g's log argument and g (exp_pow.py:78-81), lg = log(exp_g_arg(p))
+template <typename T> EP_HD T exp_g_arg(Vec3<T> p) {
+  return dv(max_(p.y, tiny<T>()), max_(p.z, tiny<T>()));
+}
+template <typename T> EP_HD T exp_g(Vec3<T> p, T lg) {
+  return p.y == (T)0 ? p.x : add(p.x, mul(p.y, lg));
+}
+
+// The serial loop's steps through the round's finished nodes (bit i of
+// done: node i's Newton has ended; of up: its g > 0, false for a NaN as
+// in the reference), as far as they reach: kExpWait at a node still
+// running, kExpRestart where the walk leaves the round's L nodes (a new
+// round's nodes start from the cone), kExpFinish where the bisection stops
+// (c.cur: the node whose solution is the row's).
 template <typename T>
-EP_HD Vec3<T> exp_case4(T r0, T s0, T t0, T tol, int max_iter) {
-  Vec3<T> sol;
-  double l = 0.0, lam = 0.125;
-  T g = exp_grad_dual(lam, r0, s0, t0, tol, &sol);
-  for (int k = 0; g > (T)0 && k < kBoundSteps; ++k) {
-    l = lam;
-    lam = mul(lam, 2.0);
-    g = exp_grad_dual(lam, r0, s0, t0, tol, &sol);
+EP_HD int exp_walk(ExpCone<T>& c, unsigned done, unsigned up, int L, int max_iter) {
+  for (;;) {  // each step moves c.cur on, below L
+    if (c.phase == kExpIdle || !((done >> c.cur) & 1u)) return kExpWait;
+    const bool g_up = (up >> c.cur) & 1u;
+    if (c.phase == kExpBound) {
+      if (g_up && c.k < kBoundSteps) {
+        c.l = c.lam;
+        c.lam = mul(c.lam, 2.0);
+        ++c.k;
+        if (++c.cur == L) {
+          c.cur = 0;
+          return kExpRestart;
+        }
+      } else {
+        c.u = c.lam;
+        c.phase = kExpBisect;
+        c.k = 0;
+        c.cur = 0;
+        c.lam = half(add(c.u, c.l));
+        return kExpRestart;
+      }
+    } else {
+      if (g_up) c.l = c.lam;
+      else c.u = c.lam;
+      ++c.k;
+      // the reference's do-while: at least one step, then while u - l >= tol
+      if (!((T)sub(c.u, c.l) >= c.tol && c.k < max_iter)) return kExpFinish;
+      c.cur = 2 * c.cur + (g_up ? 2 : 1);
+      c.lam = half(add(c.u, c.l));
+      if (c.cur >= L) {
+        c.cur = 0;
+        return kExpRestart;
+      }
+    }
   }
-  double u = lam;
-  int k = 0;
-  do {
-    lam = dv(add(u, l), 2.0);
-    g = exp_grad_dual(lam, r0, s0, t0, tol, &sol);
-    if (g > (T)0) l = lam;
-    else u = lam;
-    ++k;
-  } while ((T)sub(u, l) >= tol && k < max_iter);
-  return sol;
 }
 
-// _project_exp_one (exp_pow.py:122)
-template <typename T> EP_HD Vec3<T> project_exp_one(Vec3<T> v, T tol, int max_iter) {
-  if (exp_in_cone0(v.x, v.y, v.z)) return v;
-  if (exp_in_dual0(-v.x, -v.y, -v.z)) return Vec3<T>{(T)0, (T)0, (T)0};
-  if (v.x < (T)0 && v.y < (T)0) return Vec3<T>{v.x, mul((T)0, v.y), max_(v.z, (T)0)};
-  return exp_case4(v.x, v.y, v.z, tol, max_iter);
+// a row's output: the projection p of u = -v for a dual cone is v + p
+template <typename T> EP_HD Vec3<T> exp_row_out(Vec3<T> u, bool dual, Vec3<T> p) {
+  return dual ? Vec3<T>{add(-u.x, p.x), add(-u.y, p.y), add(-u.z, p.z)} : p;
 }
 
 // ---- power cone -----------------------------------------------------
@@ -282,13 +418,6 @@ template <typename T> EP_HD Vec3<T> project_pow_one(Vec3<T> v, T a, T tol, int m
 }
 
 // ---- one cone, primal or dual (Moreau: Pi_K*(v) = v + Pi_K(-v)) -------
-template <typename T>
-EP_HD Vec3<T> project_exp_row(Vec3<T> v, bool dual, T tol, int max_iter) {
-  Vec3<T> u = dual ? Vec3<T>{-v.x, -v.y, -v.z} : v;
-  Vec3<T> p = project_exp_one(u, tol, max_iter);
-  return dual ? Vec3<T>{add(v.x, p.x), add(v.y, p.y), add(v.z, p.z)} : p;
-}
-
 template <typename T>
 EP_HD Vec3<T> project_pow_row(Vec3<T> v, T a, bool dual, T tol, int max_iter) {
   Vec3<T> u = dual ? Vec3<T>{-v.x, -v.y, -v.z} : v;

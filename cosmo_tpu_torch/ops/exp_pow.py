@@ -29,7 +29,10 @@ Dual cones use the Moreau identity Pi_{K*}(v) = v + Pi_K(-v)
 these rows: ``"rows"``, ``"evals"`` (evaluations of g(lambda) or of the
 pow Newton's end point, by lanes still in their loop) and ``"newton"``
 (inner Newton steps of those lanes). ``chip_smoke.py`` bounds the kernel's
-time by them.
+time by them. With ``per_row``, :func:`project_exp_plain` also keeps each
+row's counts, ``"row_evals"`` and ``"row_newton"`` (int64 [N], 0 in cases
+1-3), beside the totals: the work of each lane of a one-thread-a-cone
+layout, from which ``chip_smoke.py`` reckons lane efficiencies.
 """
 from __future__ import annotations
 
@@ -76,15 +79,21 @@ def exp_in_dual(v, tol):
     return c1 | c2
 
 
-def _count(stats, key, lanes):
+def _count(stats, key, lanes, rows=None):
+    """Add the ``lanes`` that do a step to ``stats[key]`` and, where the
+    stats keep per-row counts, to ``stats["row_" + key]`` at ``rows`` (the
+    lanes' rows of the stack)."""
     if stats is not None:
         stats[key] = stats.get(key, 0) + int(lanes.sum())
+        per_row = stats.get("row_" + key)
+        if per_row is not None and rows is not None:
+            per_row.index_add_(0, rows, lanes.long())
 
 
-def _find_min_t(lam, s0, t0, tol, stats=None, lanes=None):
+def _find_min_t(lam, s0, t0, tol, stats=None, lanes=None, rows=None):
     """The inner Newton for t* given lambda (convexset.jl:582-600), on every
     lane at once; ``lam`` is float64, rounded beside the lanes' values.
-    ``lanes``: the lanes whose steps ``stats`` counts."""
+    ``lanes``: the lanes whose steps ``stats`` counts (``rows``: theirs)."""
     dtype = s0.dtype
     lam_c = lam.to(dtype)
     lam2 = (lam * lam).to(dtype)
@@ -100,7 +109,7 @@ def _find_min_t(lam, s0, t0, tol, stats=None, lanes=None):
         if k % 4 == 0 and bool(done.all()):
             break
         if stats is not None:
-            _count(stats, "newton", ~done & lanes)
+            _count(stats, "newton", ~done & lanes, rows)
         dts = torch.clamp(dt, min=tiny)
         f = dt * (dt + t0) / lam2 - s0_lam + torch.log(dts / lam_c) + 1.0
         gf = (2.0 * dt + t0) / lam2 + 1.0 / dts
@@ -113,14 +122,14 @@ def _find_min_t(lam, s0, t0, tol, stats=None, lanes=None):
     return dt + t0
 
 
-def _exp_grad_dual(lam, r0, s0, t0, tol, stats=None, lanes=None):
+def _exp_grad_dual(lam, r0, s0, t0, tol, stats=None, lanes=None, rows=None):
     """g(lambda) and its minimizer (r, s, t) (convexset.jl:565-577)."""
     dtype = s0.dtype
     tiny = _tiny(dtype)
     if stats is not None:
         lanes = torch.ones_like(s0, dtype=torch.bool) if lanes is None else lanes
-        _count(stats, "evals", lanes)
-    t = _find_min_t(lam, s0, t0, tol, stats, lanes)
+        _count(stats, "evals", lanes, rows)
+    t = _find_min_t(lam, s0, t0, tol, stats, lanes, rows)
     lam_c = lam.to(dtype)
     s = (t - t0) * t / lam_c
     r = r0 - lam_c
@@ -129,21 +138,22 @@ def _exp_grad_dual(lam, r0, s0, t0, tol, stats=None, lanes=None):
     return g, torch.stack([r, s, t], dim=-1)
 
 
-def _project_exp_case4(v, tol, max_iter, stats=None):
+def _project_exp_case4(v, tol, max_iter, stats=None, rows=None):
     """Bisection on the dual variable lambda (convexset.jl:539-563): the
     exponential search for the upper bound, one bisection step, then the
-    bisection while u - l >= tol, each lane on its own."""
+    bisection while u - l >= tol, each lane on its own (``rows``: the
+    lanes' rows, for per-row counts)."""
     r0, s0, t0 = v[:, 0], v[:, 1], v[:, 2]
     n = v.shape[0]
     f64 = dict(dtype=torch.float64, device=v.device)
     lam = torch.full((n,), 0.125, **f64)
     low = torch.zeros(n, **f64)
-    g, _ = _exp_grad_dual(lam, r0, s0, t0, tol, stats)
+    g, _ = _exp_grad_dual(lam, r0, s0, t0, tol, stats, rows=rows)
     for _ in range(EXP_BOUND_STEPS):
         active = g > 0
         if not bool(active.any()):
             break
-        g_new, _ = _exp_grad_dual(lam * 2.0, r0, s0, t0, tol, stats, active)
+        g_new, _ = _exp_grad_dual(lam * 2.0, r0, s0, t0, tol, stats, active, rows)
         low = torch.where(active, lam, low)
         lam = torch.where(active, lam * 2.0, lam)
         g = torch.where(active, g_new, g)
@@ -151,7 +161,7 @@ def _project_exp_case4(v, tol, max_iter, stats=None):
 
     def step(low, up, lanes=None):
         lam = (up + low) / 2.0
-        g, sol = _exp_grad_dual(lam, r0, s0, t0, tol, stats, lanes)
+        g, sol = _exp_grad_dual(lam, r0, s0, t0, tol, stats, lanes, rows)
         pos = g > 0
         return torch.where(pos, lam, low), torch.where(pos, up, lam), sol
 
@@ -182,20 +192,27 @@ def _project_exp_rows(U, tol, max_iter, stats=None):
     rest = ~(case1 | case2 | case3)
     if bool(rest.any()):
         idx = rest.nonzero().squeeze(1)
-        out[idx] = _project_exp_case4(U[idx], tol[idx], max_iter, stats)
+        out[idx] = _project_exp_case4(U[idx], tol[idx], max_iter, stats, idx)
     return out
 
 
-def project_exp_plain(V, is_dual, tol=None, max_iter: int = 100, stats=None):
+def project_exp_plain(V, is_dual, tol=None, max_iter: int = 100, stats=None,
+                      per_row: bool = False):
     """Project the rows of V [N, 3] onto K_exp, or onto K_exp^* where
     ``is_dual`` [N] (bool); ``tol`` [N] per-cone tolerances (default 1e-8).
-    The plain version of the kernel (``exp_pow_proj.project_exp``)."""
+    The plain version of the kernel (``exp_pow_proj.project_exp``).
+    ``stats``: the work counts (module docstring), with ``per_row`` each
+    row's too."""
     if V.shape[0] == 0:
         return V
     if tol is None:
         tol = torch.full((V.shape[0],), 1e-8, dtype=V.dtype, device=V.device)
     if stats is not None:
         stats["rows"] = stats.get("rows", 0) + V.shape[0]
+        if per_row:
+            for key in ("row_evals", "row_newton"):
+                stats.setdefault(key, torch.zeros(V.shape[0], dtype=torch.int64,
+                                                  device=V.device))
     U = torch.where(is_dual[:, None], -V, V)
     P = _project_exp_rows(U, tol, max_iter, stats)
     return torch.where(is_dual[:, None], V + P, P)

@@ -1,7 +1,9 @@
 """Exponential- and power-cone projections: the wrappers that launch the
-hand-written CUDA kernel (``csrc/exp_pow_proj.cu``, one thread a cone) on
-a CUDA tensor and run the plain PyTorch version (:mod:`.exp_pow`) on a CPU
-tensor.
+hand-written CUDA kernels (``csrc/exp_pow_proj.cu``: the exp cone's
+persistent step machine, its case-4 rows queued and refilled into lanes,
+one Newton step a pass, a cone's lanes evaluating ahead; the pow cone's
+one thread a cone) on a CUDA tensor and run the plain PyTorch version
+(:mod:`.exp_pow`) on a CPU tensor.
 
 The kernel is not a port of a TPU kernel: the JAX package projects these
 cones with one ``jax.vmap`` of nested ``lax.while_loop``

@@ -369,7 +369,9 @@ def test_exp_pow_kernel_matches_plain_on_card(cuda, dtype):
     counted launch a call, relative to max |V|: float64 to 1e-10 (the
     same operations; CUDA's log, exp and pow differ from the CPU's in the
     last bits); float32 exp to 1e-4, float32 pow to 1e-4 on all but 1 row
-    in 1,000 (where the reference's float32 Newton keeps no digit)."""
+    in 1,000 (where the reference's float32 Newton keeps no digit). On the
+    card both take CUDA's log and exp: every exp row has the plain
+    version's bits."""
     from cosmo_tpu_torch.ops import exp_pow as E
     from cosmo_tpu_torch.ops import exp_pow_proj as K
 
@@ -380,8 +382,12 @@ def test_exp_pow_kernel_matches_plain_on_card(cuda, dtype):
         got = K.project_exp(V, dual, tol, 100)
         torch.cuda.synchronize()
         assert K.project_exp.launches == before + 1
-        err = (got - E.project_exp_plain(V, dual, tol, 100)).abs().max().item()
+        ref = E.project_exp_plain(V, dual, tol, 100)
+        err = (got - ref).abs().max().item()
         assert err <= (1e-10 if dtype == torch.float64 else 1e-4) * scale, (n, err)
+        bits = torch.int64 if dtype == torch.float64 else torch.int32
+        differ = (got.view(bits) != ref.view(bits)).any(dim=1).sum().item()
+        assert differ == 0, (n, differ)
         for a in (0.3, 0.5, 0.8):
             alpha = torch.full((n,), a, dtype=dtype, device=cuda)
             got = K.project_pow(V, alpha, dual, tol, 20)

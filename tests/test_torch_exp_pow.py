@@ -11,11 +11,12 @@ libraries' log, exp and pow differ in the last bit at most) and 1e-6 in
 float32 (measured 1.2e-7 and 3.8e-7; the float32 pow Newton amplifies the
 last-bit differences). The membership tests must agree exactly.
 
-The kernel (csrc/exp_pow_proj.cu) runs only on a card, but its per-cone
-body (csrc/exp_pow_body.cuh) is plain C++ as well: where g++ is on the
-PATH, it is compiled here without FMA contraction and held to the plain
-version at the same limits (measured: exp identical, pow 6.6e-16 in
-float64; float32 pow as the JAX comparison).
+The kernel (csrc/exp_pow_proj.cu) runs only on a card, but its arithmetic
+(csrc/exp_pow_body.cuh: the exp step machine, the pow body) is plain C++
+as well: where g++ is on the PATH, it is compiled here without FMA
+contraction and held to the plain version at the same limits (with the
+host's libm, not torch's log and exp; tests/test_torch_exp_sched.py holds
+the exp kernel's schedule to the plain version's bits).
 """
 import ctypes
 import shutil
@@ -188,9 +189,10 @@ def test_converted_cones_project_as_reference():
 
 
 def _host_body(tmp_path):
-    """The kernel's per-cone body compiled as C++ on the host (no FMA
+    """The kernels' arithmetic compiled as C++ on the host (no FMA
     contraction, so each operation rounds once as on the card), with one C
-    entry a family and type looping over the rows."""
+    entry a family and type looping over the rows: the exp kernel's step
+    machine on one lane a row, the pow kernel's body."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel body on the host")
@@ -198,11 +200,29 @@ def _host_body(tmp_path):
     src.write_text("""
 #include <stdint.h>
 #include "exp_pow_body.cuh"
+using namespace exp_pow;
+// the exp kernel's step machine on one lane a row, one row after another
 template <typename T>
 static void exp_rows(const T* v, const uint8_t* d, const T* tol, T* o, int n, int mi) {
   for (int i = 0; i < n; ++i) {
-    exp_pow::Vec3<T> p = exp_pow::project_exp_row(
-        exp_pow::Vec3<T>{v[3 * i], v[3 * i + 1], v[3 * i + 2]}, d[i] != 0, tol[i], mi);
+    Vec3<T> u{v[3 * i], v[3 * i + 1], v[3 * i + 2]};
+    if (d[i]) u = Vec3<T>{-u.x, -u.y, -u.z};
+    const int cs = exp_case(u, exp_(exp_cone_arg(u)), exp_(exp_dual_arg(u)));
+    Vec3<T> p = exp_closed_form(cs, u);
+    if (cs == 4) {
+      ExpCone<T> c;
+      ExpNode<T> nd;
+      exp_cone_start(c, u, tol[i], d[i] != 0, i);
+      exp_node_start(nd, c, exp_node_lam(c, 0));
+      for (;;) {
+        if (!exp_newton_step(nd, c.t0, c.tol, log_(exp_newton_arg(nd)))) continue;
+        p = exp_node_sol(c.r0, c.t0, nd.dt, nd.lam_c);
+        const unsigned up = exp_g(p, log_(exp_g_arg(p))) > (T)0;
+        if (exp_walk(c, 1u, up, 1, mi) == kExpFinish) break;
+        exp_node_start(nd, c, exp_node_lam(c, 0));
+      }
+    }
+    p = exp_row_out(u, d[i] != 0, p);
     o[3 * i] = p.x; o[3 * i + 1] = p.y; o[3 * i + 2] = p.z;
   }
 }
@@ -210,8 +230,8 @@ template <typename T>
 static void pow_rows(const T* v, const T* a, const uint8_t* d, const T* tol, T* o, int n,
                      int mi) {
   for (int i = 0; i < n; ++i) {
-    exp_pow::Vec3<T> p = exp_pow::project_pow_row(
-        exp_pow::Vec3<T>{v[3 * i], v[3 * i + 1], v[3 * i + 2]}, a[i], d[i] != 0, tol[i], mi);
+    Vec3<T> p = project_pow_row(Vec3<T>{v[3 * i], v[3 * i + 1], v[3 * i + 2]}, a[i],
+                                d[i] != 0, tol[i], mi);
     o[3 * i] = p.x; o[3 * i + 1] = p.y; o[3 * i + 2] = p.z;
   }
 }

@@ -261,35 +261,6 @@ struct Exchange {
   bool live;
 };
 
-// The warm-started eigendecomposition's arguments (jacobi_eig.cu; kEig
-// below). The sweep count is read from device memory by every thread:
-// `full` when *stale is nonzero, else `warm` (eig_sweeps); at its end
-// thread 0 of block 0 adds one to *n_full on a full-sweep launch
-// (eig_tally; n_full may be null). V0 [B, k, k] is the starting basis (V =
-// V0 Q); V [B, k, k] receives the basis.
-template <typename T>
-struct EigArgs {
-  const T* v0 = nullptr;
-  T* v = nullptr;
-  const unsigned char* stale = nullptr;
-  int warm = 0;
-  int full = 0;
-  int* n_full = nullptr;
-};
-
-template <typename T>
-__device__ __forceinline__ int eig_sweeps(const EigArgs<T>& eig) {
-  return *eig.stale != 0 ? eig.full : eig.warm;
-}
-
-// At the kernel's end: the tally before the sweeps made ptxas spill the
-// float32 k = 16 register body.
-template <typename T>
-__device__ __forceinline__ void eig_tally(const EigArgs<T>& eig) {
-  if (eig.n_full != nullptr && blockIdx.x == 0 && threadIdx.x == 0 && *eig.stale != 0)
-    *eig.n_full += 1;
-}
-
 // Round R on the rows xt (slot 2t), xb (slot 2t+1) of X and vt, vb (rows
 // 2t, 2t+1) of V.
 template <typename T, int K, class S, int R>
@@ -375,13 +346,10 @@ __device__ __forceinline__ void sweep_regs(T (&xt)[K], T (&xb)[K], T (&vt)[K],
 }
 
 // Each warp projects `per_warp` consecutive matrices, k/2 lanes each.
-// kEig (jacobi_eig.cu): start from V0 in place of the identity, read the
-// sweep count on the device, store 0.5 (P + P^T) and V; without it the
-// kernel is the projection of jacobi_proj.cu and jacobi_proj_rr.cu.
-template <typename T, int K, class S, bool kEig>
+template <typename T, int K, class S>
 __global__ void __launch_bounds__(32 * kRegWarps, 1)  // all 255 registers
 jacobi_proj_regs(const T* __restrict__ x, T* __restrict__ out, int B, int sweeps,
-                 int per_warp, EigArgs<T> eig) {
+                 int per_warp) {
   constexpr int H = K / 2;
   constexpr int kGroups = 32 / H;        // matrices a warp can hold
   constexpr int LD = Tile<T, K>::ld;
@@ -403,23 +371,6 @@ jacobi_proj_regs(const T* __restrict__ x, T* __restrict__ out, int B, int sweeps
   const Exchange<T> ex{tile, &cs[warp][gm][0], live};
 
   T xt[K], xb[K], vt[K], vb[K];
-  if constexpr (kEig) {
-    // the rows 2t, 2t+1 of V0, staged through the tile like X below
-    sweeps = eig_sweeps(eig);
-    const T* vw = eig.v0 + b0 * K * K;
-    for (int e = lane; e < n_here * K * K; e += 32) {
-      const int m = e / (K * K), ij = e - m * (K * K);
-      tiles[warp][m * kTile + (ij / K) * LD + ij % K] = vw[e];
-    }
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      vt[j] = tile[(2 * t) * LD + j];
-      vb[j] = tile[(2 * t + 1) * LD + j];
-    }
-    __syncwarp();
-  }
-
   const T* xw = x + b0 * K * K;
   for (int e = lane; e < n_here * K * K; e += 32) {
     const int m = e / (K * K), ij = e - m * (K * K);
@@ -432,10 +383,8 @@ jacobi_proj_regs(const T* __restrict__ x, T* __restrict__ out, int B, int sweeps
   for (int j = 0; j < K; ++j) {
     xt[j] = tile[l_top * LD + j];
     xb[j] = tile[l_bot * LD + j];
-    if constexpr (!kEig) {
-      vt[j] = j == 2 * t ? T(1) : T(0);
-      vb[j] = j == 2 * t + 1 ? T(1) : T(0);
-    }
+    vt[j] = j == 2 * t ? T(1) : T(0);
+    vb[j] = j == 2 * t + 1 ? T(1) : T(0);
   }
 
   for (int sw = 0; sw < sweeps; ++sw) {
@@ -484,22 +433,12 @@ jacobi_proj_regs(const T* __restrict__ x, T* __restrict__ out, int B, int sweeps
     T acc = T(0);
 #pragma unroll
     for (int l = 0; l < K; ++l) acc += V[i * LD + l] * (wm[l] * V[j * LD + l]);
-    if constexpr (kEig) {
-      // 0.5 (P + P^T): the transposed entry's own sum
-      T acc_t = T(0);
-#pragma unroll
-      for (int l = 0; l < K; ++l) acc_t += V[j * LD + l] * (wm[l] * V[i * LD + l]);
-      acc = T(0.5) * (acc + acc_t);
-      eig.v[b0 * K * K + e] = V[i * LD + j];
-    }
     ow[e] = acc;
   }
-  if constexpr (kEig) eig_tally(eig);
 }
 
-template <typename T, int K, class S, bool kEig>
-int launch_regs(const T* x, T* out, int B, int sweeps, const EigArgs<T>& eig,
-                cudaStream_t stream) {
+template <typename T, int K, class S>
+int launch_regs(const T* x, T* out, int B, int sweeps, cudaStream_t stream) {
   constexpr int kGroups = 32 / (K / 2);
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -512,8 +451,8 @@ int launch_regs(const T* x, T* out, int B, int sweeps, const EigArgs<T>& eig,
   if (per_warp < 1) per_warp = 1;
   const int warps = (B + per_warp - 1) / per_warp;
   const int grid = (warps + kRegWarps - 1) / kRegWarps;
-  jacobi_proj_regs<T, K, S, kEig><<<grid, 32 * kRegWarps, 0, stream>>>(
-      x, out, B, sweeps, per_warp, eig);
+  jacobi_proj_regs<T, K, S><<<grid, 32 * kRegWarps, 0, stream>>>(
+      x, out, B, sweeps, per_warp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -526,34 +465,22 @@ int launch_smem(const float* x, float* out, const unsigned char* pairs, int B, i
                 int sweeps, cudaStream_t stream);
 int launch_smem(const double* x, double* out, const unsigned char* pairs, int B, int k,
                 int sweeps, cudaStream_t stream);
-// the same with the warm-started eigendecomposition's arguments (kEig)
-int launch_smem_eig(const float* x, float* out, const unsigned char* pairs, int B,
-                    int k, const EigArgs<float>& eig, cudaStream_t stream);
-int launch_smem_eig(const double* x, double* out, const unsigned char* pairs, int B,
-                    int k, const EigArgs<double>& eig, cudaStream_t stream);
 
 // ---- dispatch on k ------------------------------------------------------
 
 // The register body for k <= 16 (schedule S, computed at compile time); the
 // shared-memory body with the host's pair table above. Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a k
-// outside even 4..48, B <= 0 or sweeps < 0 (with kEig: warm or full < 0,
-// or a null V0, V or stale).
-template <typename T, class S, bool kEig = false, int K = 4>
+// outside even 4..48, B <= 0 or sweeps < 0.
+template <typename T, class S, int K = 4>
 int launch(const T* x, T* out, const unsigned char* pairs, int B, int k, int sweeps,
-           cudaStream_t stream, const EigArgs<T>& eig = {}) {
+           cudaStream_t stream) {
   if (B <= 0 || sweeps < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (kEig) {
-    if (eig.warm < 0 || eig.full < 0 || !eig.v0 || !eig.v || !eig.stale)
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
   if constexpr (K > kMaxRegSide) {
-    if constexpr (kEig) return launch_smem_eig(x, out, pairs, B, k, eig, stream);
-    else return launch_smem(x, out, pairs, B, k, sweeps, stream);
+    return launch_smem(x, out, pairs, B, k, sweeps, stream);
   } else {
-    if (k != K)
-      return launch<T, S, kEig, K + 2>(x, out, pairs, B, k, sweeps, stream, eig);
-    return launch_regs<T, K, S, kEig>(x, out, B, sweeps, eig, stream);
+    if (k != K) return launch<T, S, K + 2>(x, out, pairs, B, k, sweeps, stream);
+    return launch_regs<T, K, S>(x, out, B, sweeps, stream);
   }
 }
 

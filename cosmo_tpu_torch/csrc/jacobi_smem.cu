@@ -2,8 +2,7 @@
 // 18 <= k <= 48 (off the auto rule's path, inside the kernels' domain). Both
 // schedules run it with their host pair table, so it is compiled once, into
 // the same library as jacobi_proj.cu and jacobi_proj_rr.cu (jacobi_rounds.cuh
-// says what the design is and what bounds it). With kEig it is the body of
-// the warm-started eigendecomposition of jacobi_eig.cu for those sides.
+// says what the design is and what bounds it).
 //
 // One warp owns a matrix, X and V (rows padded to k + 1) in shared memory;
 // lanes t < k/2 compute the round's angles from the pair table
@@ -18,11 +17,11 @@ namespace jacobi {
 constexpr int kSmemMaxPerBlock = 4;  // matrices of a block
 constexpr size_t kStaticSmem = 48 * 1024;
 
-template <typename T, int K, bool kEig>
+template <typename T, int K>
 __global__ void __launch_bounds__(32 * kSmemMaxPerBlock)
 jacobi_proj_smem(const T* __restrict__ x, T* __restrict__ out,
                  const unsigned char* __restrict__ pairs, int B, int sweeps,
-                 int per_block, EigArgs<T> eig) {
+                 int per_block) {
   constexpr int H = K / 2;
   constexpr int LD = K + 1;
   constexpr int MAT = K * LD;
@@ -38,17 +37,12 @@ jacobi_proj_smem(const T* __restrict__ x, T* __restrict__ out,
   if (b >= B) return;  // after the only block barrier
   T* X = reinterpret_cast<T*>(smem) + 2 * MAT * warp;
   T* V = X + MAT;
-  if constexpr (kEig) sweeps = eig_sweeps(eig);
 
   const T* xb = x + static_cast<size_t>(b) * K * K;
   for (int e = lane; e < K * K; e += 32) {
     const int i = e / K, j = e % K;
     X[i * LD + j] = xb[e];
-    if constexpr (kEig) {
-      V[i * LD + j] = eig.v0[static_cast<size_t>(b) * K * K + e];
-    } else {
-      V[i * LD + j] = i == j ? T(1) : T(0);
-    }
+    V[i * LD + j] = i == j ? T(1) : T(0);
   }
   __syncwarp();
 
@@ -115,25 +109,13 @@ jacobi_proj_smem(const T* __restrict__ x, T* __restrict__ out,
       const T w = d < T(0) ? T(0) : d;  // NaN stays NaN, as jnp.maximum
       acc += V[i * LD + l] * (w * V[j * LD + l]);
     }
-    if constexpr (kEig) {
-      // 0.5 (P + P^T): the transposed entry's own sum
-      T acc_t = T(0);
-      for (int l = 0; l < K; ++l) {
-        const T d = X[l * LD + l];
-        const T w = d < T(0) ? T(0) : d;
-        acc_t += V[j * LD + l] * (w * V[i * LD + l]);
-      }
-      acc = T(0.5) * (acc + acc_t);
-      eig.v[static_cast<size_t>(b) * K * K + e] = V[i * LD + j];
-    }
     ob[e] = acc;
   }
-  if constexpr (kEig) eig_tally(eig);
 }
 
-template <typename T, int K, bool kEig>
+template <typename T, int K>
 int launch_side(const T* x, T* out, const unsigned char* pairs, int B, int sweeps,
-                const EigArgs<T>& eig, cudaStream_t stream) {
+                cudaStream_t stream) {
   const size_t per_mat = 2 * static_cast<size_t>(K) * (K + 1) * sizeof(T);
   const size_t table_bytes = static_cast<size_t>(K - 1) * K;
   int per_block = static_cast<int>((kStaticSmem - table_bytes) / per_mat);
@@ -142,40 +124,30 @@ int launch_side(const T* x, T* out, const unsigned char* pairs, int B, int sweep
   if (per_block < 1) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = per_mat * per_block + table_bytes;
   const int grid = (B + per_block - 1) / per_block;
-  jacobi_proj_smem<T, K, kEig><<<grid, 32 * per_block, smem, stream>>>(
-      x, out, pairs, B, sweeps, per_block, eig);
+  jacobi_proj_smem<T, K><<<grid, 32 * per_block, smem, stream>>>(
+      x, out, pairs, B, sweeps, per_block);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kEig, int K = kMaxRegSide + 2>
+template <typename T, int K = kMaxRegSide + 2>
 int dispatch(const T* x, T* out, const unsigned char* pairs, int B, int k, int sweeps,
-             const EigArgs<T>& eig, cudaStream_t stream) {
+             cudaStream_t stream) {
   if constexpr (K > kMaxSide) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    if (k != K) return dispatch<T, kEig, K + 2>(x, out, pairs, B, k, sweeps, eig, stream);
-    return launch_side<T, K, kEig>(x, out, pairs, B, sweeps, eig, stream);
+    if (k != K) return dispatch<T, K + 2>(x, out, pairs, B, k, sweeps, stream);
+    return launch_side<T, K>(x, out, pairs, B, sweeps, stream);
   }
 }
 
 int launch_smem(const float* x, float* out, const unsigned char* pairs, int B, int k,
                 int sweeps, cudaStream_t stream) {
-  return dispatch<float, false>(x, out, pairs, B, k, sweeps, {}, stream);
+  return dispatch<float>(x, out, pairs, B, k, sweeps, stream);
 }
 
 int launch_smem(const double* x, double* out, const unsigned char* pairs, int B, int k,
                 int sweeps, cudaStream_t stream) {
-  return dispatch<double, false>(x, out, pairs, B, k, sweeps, {}, stream);
-}
-
-int launch_smem_eig(const float* x, float* out, const unsigned char* pairs, int B,
-                    int k, const EigArgs<float>& eig, cudaStream_t stream) {
-  return dispatch<float, true>(x, out, pairs, B, k, 0, eig, stream);
-}
-
-int launch_smem_eig(const double* x, double* out, const unsigned char* pairs, int B,
-                    int k, const EigArgs<double>& eig, cudaStream_t stream) {
-  return dispatch<double, true>(x, out, pairs, B, k, 0, eig, stream);
+  return dispatch<double>(x, out, pairs, B, k, sweeps, stream);
 }
 
 }  // namespace jacobi

@@ -32,8 +32,8 @@ BUILD_DIR = _PKG / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the Jacobi kernels' library: the round-robin and the slot-rotation
-# schedules' C entries, the warm-started eigendecomposition's, the
-# shared-memory body all three use, and the warm-started
+# schedules' C entries, the amortized projection's (one launch), the
+# shared-memory body the two projections use, and the warm-started
 # eigendecompositions of the large sides (a cluster a matrix; the grid)
 JACOBI_SOURCES = ("jacobi_proj.cu", "jacobi_proj_rr.cu", "jacobi_eig.cu",
                   "jacobi_smem.cu", "jacobi_eig_cluster.cu", "jacobi_eig_large.cu")
@@ -124,9 +124,11 @@ def jacobi_library() -> ctypes.CDLL:
     ``<prefix>_f32`` and ``<prefix>_f64``, for each prefix of
     :data:`JACOBI_ENTRIES`, are ``int f(const T* x, T* out, const uint8_t*
     pairs, int B, int k, int sweeps, void* stream)``; ``jacobi_eig_f32`` and
-    ``jacobi_eig_f64`` are ``int f(const T* w, const T* v0, T* p, T* v,
-    const uint8_t* pairs, const uint8_t* stale, int warm, int full, int*
-    n_full, int B, int k, void* stream)``; ``jacobi_eig_large_f32`` and
+    ``jacobi_eig_f64`` are ``int f(const T* x, const T* v_prev, T* p, T* v,
+    const uint8_t* pairs, uint8_t* stale, int* sync, int warm, int full,
+    int* n_full, int B, int k, void* stream)`` and
+    ``jacobi_eig_wave_<f32|f64>(int k, int* out)`` the matrices one wave of
+    its persistent grid holds; ``jacobi_eig_large_f32`` and
     ``jacobi_eig_large_f64`` are ``int f(const T* w, const T* v0, T* d, T*
     v, T* scratch, const uint16_t* pairs, const uint8_t* stale, int warm,
     int full, int* n_full, int B, int k, void* stream)``;
@@ -141,13 +143,14 @@ def jacobi_library() -> ctypes.CDLL:
     for t in ("f32", "f64"):
         for prefix in JACOBI_ENTRIES:
             getattr(lib, f"{prefix}_{t}").argtypes = [p, p, p, i, i, i, p]
-        getattr(lib, f"jacobi_eig_{t}").argtypes = [p, p, p, p, p, p, i, i, p, i, i, p]
+        getattr(lib, f"jacobi_eig_{t}").argtypes = [p, p, p, p, p, p, p, i, i, p, i, i, p]
+        getattr(lib, f"jacobi_eig_wave_{t}").argtypes = [i, p]
         getattr(lib, f"jacobi_eig_large_{t}").argtypes = [p, p, p, p, p, p, p, i, i, p,
                                                           i, i, p]
         getattr(lib, f"jacobi_eig_cluster_{t}").argtypes = [p, p, p, p, p, p, p, i, i,
                                                             p, i, i, i, p]
         getattr(lib, f"jacobi_eig_cluster_max_active_{t}").argtypes = [i, i, p]
-        for prefix in (*JACOBI_ENTRIES, "jacobi_eig", "jacobi_eig_large",
+        for prefix in (*JACOBI_ENTRIES, "jacobi_eig", "jacobi_eig_wave", "jacobi_eig_large",
                        "jacobi_eig_cluster", "jacobi_eig_cluster_max_active"):
             getattr(lib, f"{prefix}_{t}").restype = i
     return lib

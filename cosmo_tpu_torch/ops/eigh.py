@@ -154,10 +154,21 @@ def jacobi_eigh(X, sweeps=8, method: str = "vec", V0=None, rounds=None):
     sweeps = int(sweeps)
     if method == "vecT" and V0 is None and rounds is None:
         return _jacobi_eigh_transposed(X, sweeps)
-    X = X.clone()
     V = (torch.eye(k, dtype=X.dtype, device=X.device).expand(B, k, k).clone()
          if V0 is None else V0.clone())
-    schedule = _schedule(k, rounds, X.device)
+    X, V = jacobi_sweeps(X.clone(), V, sweeps, method, rounds)
+    w = torch.diagonal(X, dim1=-2, dim2=-1)
+    return w, V
+
+
+def jacobi_sweeps(X, V, sweeps: int, method: str = "vec", rounds=None):
+    """``sweeps`` sweeps of :func:`jacobi_eigh` on the even-sided stack X
+    [B, k, k] and the basis V (both updated in place with "vec"), each
+    followed by X <- (X + X') / 2. Returns (X, V). n sweeps and then m more
+    are the n + m sweeps, operation for operation: the kernel ``jacobi_eig``
+    runs the warm sweeps before the stale flag is known and the rest after
+    it."""
+    schedule = _schedule(X.shape[-1], rounds, X.device)
     for _ in range(sweeps):
         for p, q in schedule:
             if method == "mm":
@@ -165,8 +176,7 @@ def jacobi_eigh(X, sweeps=8, method: str = "vec", V0=None, rounds=None):
             else:
                 _apply_round_vec(X, V, p, q)
         X = 0.5 * (X + X.transpose(-1, -2))
-    w = torch.diagonal(X, dim1=-2, dim2=-1)
-    return w, V
+    return X, V
 
 
 def psd_reconstruct(w, V):
@@ -199,11 +209,13 @@ STALE_SHARE = 0.09
 
 
 def amortized_rotate(X, V_prev):
-    """The torch part of the amortized projection: one Newton-Schulz step
-    re-orthonormalises the carried basis (V (3I - V'V) / 2), W = V'XV is
-    symmetrised, and ``stale`` (a 0-d bool tensor, left on the device) says
-    whether any block's off-diagonal mass exceeds 9% of its energy (plus
-    tiny). Returns (W, V, stale)."""
+    """The rotation of the amortized projection, in torch: one Newton-Schulz
+    step re-orthonormalises the carried basis (V (3I - V'V) / 2), W = V'XV
+    is symmetrised, and ``stale`` (a 0-d bool tensor, left on the device)
+    says whether any block's off-diagonal mass exceeds 9% of its energy
+    (plus tiny). The plain version's first part; on a CUDA device it runs
+    before the large-side kernels (the kernel ``jacobi_eig`` computes it
+    itself). Returns (W, V, stale)."""
     B, k, _ = X.shape
     eye = torch.eye(k, dtype=X.dtype, device=X.device)
     V = 0.5 * torch.bmm(V_prev, 3.0 * eye.expand(B, k, k)
@@ -224,16 +236,17 @@ def psd_project_amortized(X, V_prev, warm_sweeps: int = 2, full_sweeps: int = 8,
     operation): :func:`amortized_rotate`, then ``warm_sweeps`` Jacobi
     sweeps on W from the re-orthonormalised basis, or ``full_sweeps`` when
     the basis is stale, then the symmetrised V max(w, 0) V'. The sweep
-    count is read on the host: this is the plain version, for the CPU (the
-    wrapper ``ops/jacobi_eig.psd_project_amortized`` runs the Jacobi part
-    as a kernel on a CUDA device). Returns (P, V)."""
+    count is read on the host: this is the plain version, for the CPU (on a
+    CUDA device the wrapper ``ops/jacobi_eig.psd_project_amortized`` runs
+    all of it as the kernel ``jacobi_eig`` at the even sides 4..48, and the
+    Jacobi part as a kernel at the other even sides). Returns (P, V)."""
     W, V0, stale = amortized_rotate(X, V_prev)
     return jacobi_eig_plain(W, V0, stale, warm_sweeps, full_sweeps, method)
 
 
 def jacobi_eig_plain(W, V0, stale, warm: int, full: int, method: str = "vec"):
     """The Jacobi part of the amortized projection, the function of the
-    kernels ``jacobi_eig``, ``jacobi_eig_cluster`` and ``jacobi_eig_large``:
+    kernels ``jacobi_eig_cluster`` and ``jacobi_eig_large``:
     ``full`` sweeps on W from the basis V0 when ``stale`` (read on the
     host), else ``warm``.
     Returns (0.5 (P + P'), V) with P = V max(w, 0) V'. An odd side takes

@@ -5,14 +5,14 @@ PyTorch version, and the wrapper the projection calls.
 eigenbasis across ADMM iterations: it rotates W = V'XV in the
 re-orthonormalised basis, then runs 2 Jacobi sweeps from it, or the full
 sweeps when a block's off-diagonal mass says the basis went stale. The
-sweep count is a traced scalar of a ``lax.fori_loop``. Here the torch part
-(``eigh.amortized_rotate``) leaves the stale flag on the device, and a
-kernel reads it there: the projection adds no host read. Which kernel
+sweep count is a traced scalar of a ``lax.fori_loop``. Here the stale flag
+never leaves the card: the projection adds no host read. Which kernel
 takes a side (:func:`kernel_for`):
 
-* even 4..48 (``eigh.kernel_takes``): ``jacobi_eig`` (``csrc/jacobi_eig.cu``,
-  the ``kEig`` instantiation of the design of ``csrc/jacobi_rounds.cuh``,
-  a matrix in one warp), the reconstruction fused;
+* even 4..48 (``eigh.kernel_takes``): ``jacobi_eig`` (``csrc/jacobi_eig.cu``),
+  the whole projection in one cooperative launch on (X, V_prev): the
+  rotation, the staleness test over the stack, the sweeps (the count
+  settled on the card behind a grid barrier) and the reconstruction;
 * even k = 2 and the even k above 48 whose W fits the shared memory of the
   largest cluster (:func:`cluster_kernel_takes`): ``jacobi_eig_cluster``
   (``csrc/jacobi_eig_cluster.cu``, a thread-block cluster a matrix, W in
@@ -27,16 +27,18 @@ takes a side (:func:`kernel_for`):
   ignores V0 (``eigh.amortized_eigh``), and so does the wrapper, on either
   device; the stale flag is not read.
 
-* :func:`psd_project_amortized` — the wrapper: on a CUDA device the torch
-  rotation and one counted kernel launch; on the CPU the plain version
-  ``eigh.psd_project_amortized``. Launches count in
+* :func:`psd_project_amortized` — the wrapper: on a CUDA device one counted
+  launch of ``jacobi_eig``, or at the other sides the torch rotation
+  (``eigh.amortized_rotate``) and one counted launch of the side's kernel;
+  on the CPU the plain version ``eigh.psd_project_amortized``. Launches count in
   ``psd_project_amortized.launches`` by (kernel, k, dtype name); the
   kernels tally their full-sweep launches on the device, one tally for
   each of those keys (:func:`full_sweep_counts` reads them at once).
-* ``jacobi_eig_plain`` (``eigh.jacobi_eig_plain``) — the kernels' function
-  in PyTorch: the Jacobi from V0 with the sweep count read on the host,
-  then 0.5 (P + P'). The CPU tests hold it to the JAX function;
-  ``chip_smoke.py`` holds each kernel to it on the card.
+* ``eigh.psd_project_amortized`` — ``jacobi_eig``'s function in PyTorch,
+  and ``jacobi_eig_plain`` (``eigh.jacobi_eig_plain``) the large-side
+  kernels': the Jacobi from V0 with the sweep count read on the host, then
+  0.5 (P + P'). The CPU tests hold them to the JAX function;
+  ``chip_smoke.py`` holds each kernel to its own on the card.
 
 Each kernel has its launcher (``LAUNCHERS``: :func:`jacobi_eig_cuda`,
 :func:`jacobi_eig_cluster_cuda`, :func:`jacobi_eig_large_cuda`), which
@@ -169,35 +171,70 @@ def _check_inputs(name, takes, W, V0, stale, n_full):
                          f"(kernel_for says which kernel takes a side)")
     _check("W", W, W)
     _check("V0", V0, W)
-    if stale.device != W.device or stale.dtype != torch.bool or stale.numel() != 1:
+    if stale is not None and (stale.device != W.device or stale.dtype != torch.bool
+                              or stale.numel() != 1):
         raise ValueError("jacobi_eig: stale must be one bool on W's device")
     if n_full is not None and (n_full.device != W.device or n_full.dtype != torch.int32):
         raise ValueError("jacobi_eig: n_full must be an int32 tensor on W's device")
 
 
-def jacobi_eig_cuda(W, V0, stale, warm: int, full: int, n_full=None):
-    """Launch ``jacobi_eig`` on ``W`` and ``V0`` [B, k, k] (contiguous
+# jacobi_eig's three device ints on each device: the epoch and the stale
+# flag's two slots (zero at first; each launch leaves them so for the next,
+# so the launches on a device must run in one stream's order)
+_SYNC: dict = {}
+
+
+def _sync_words(device) -> torch.Tensor:
+    device = _device(device)
+    if str(device) not in _SYNC:
+        _SYNC[str(device)] = torch.zeros(3, dtype=torch.int32, device=device)
+    return _SYNC[str(device)]
+
+
+def jacobi_eig_cuda(X, V_prev, warm: int, full: int, n_full=None):
+    """Launch ``jacobi_eig`` on ``X`` and ``V_prev`` [B, k, k] (contiguous
     float32/float64 CUDA tensors of an even side 4..48, ``kernel_takes``)
-    on the current stream, with ``stale`` a 0-d bool CUDA tensor: ``full``
-    sweeps from V0 when it is set, else ``warm``, the reconstruction fused.
-    ``n_full``, an int32 CUDA tensor of one element, counts the launches
-    that ran the full sweeps (on the device). Returns (P, V). Does not
-    count launches."""
-    _check_inputs("jacobi_eig", kernel_takes, W, V0, stale, n_full)
-    B, k, _ = W.shape
-    P, V = torch.empty_like(W), torch.empty_like(W)
+    on the current stream: the whole amortized projection
+    (``eigh.psd_project_amortized``) in one cooperative launch, ``full``
+    sweeps when any block is stale, else ``warm``, the flag never leaving
+    the card. ``n_full``, an int32 CUDA tensor of one element, counts the
+    launches that ran the full sweeps (on the device). Returns (P, V,
+    stale), ``stale`` the 0-d bool the kernel decided on. Does not count
+    launches. A stack the card cannot hold at once in the launch's
+    persistent grid is walked by it; a launch the card refuses raises."""
+    _check_inputs("jacobi_eig", kernel_takes, X, V_prev, None, n_full)
+    B, k, _ = X.shape
+    P, V = torch.empty_like(X), torch.empty_like(X)
     if B == 0:
-        return P, V
+        return P, V, torch.zeros((), dtype=torch.bool, device=X.device)
+    stale = torch.empty((), dtype=torch.bool, device=X.device)
     lib = cuda_build.jacobi_library()
-    fn = lib.jacobi_eig_f32 if W.dtype == torch.float32 else lib.jacobi_eig_f64
-    err = fn(W.data_ptr(), V0.data_ptr(), P.data_ptr(), V.data_ptr(),
-             _schedule_on(k, W.device).data_ptr(), stale.data_ptr(), int(warm),
-             int(full), None if n_full is None else n_full.data_ptr(), B, k,
-             torch.cuda.current_stream(W.device).cuda_stream)
+    fn = lib.jacobi_eig_f32 if X.dtype == torch.float32 else lib.jacobi_eig_f64
+    err = fn(X.data_ptr(), V_prev.data_ptr(), P.data_ptr(), V.data_ptr(),
+             _schedule_on(k, X.device).data_ptr(), stale.data_ptr(),
+             _sync_words(X.device).data_ptr(), int(warm), int(full),
+             None if n_full is None else n_full.data_ptr(), B, k,
+             torch.cuda.current_stream(X.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"jacobi_eig kernel launch failed: CUDA error {err} "
-                           f"(B={B}, k={k}, {W.dtype})")
-    return P, V
+                           f"(B={B}, k={k}, {X.dtype})")
+    return P, V, stale
+
+
+@lru_cache(maxsize=None)
+def eig_wave(k: int, dtype, device_index: int) -> int:
+    """The matrices of side ``k`` in ``dtype`` that one wave of
+    ``jacobi_eig``'s persistent grid holds on the card ``device_index``: a
+    larger stack has warps that walk several groups. Builds the library."""
+    lib = cuda_build.jacobi_library()
+    fn = lib.jacobi_eig_wave_f32 if dtype == torch.float32 else lib.jacobi_eig_wave_f64
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = fn(k, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"jacobi_eig: the occupancy query failed: CUDA error {err} "
+                           f"(k={k}, {dtype})")
+    return out.value
 
 
 @lru_cache(maxsize=None)
@@ -221,8 +258,9 @@ def jacobi_eig_cluster_cuda(W, V0, stale, warm: int, full: int, n_full=None,
                             cluster=None):
     """Launch ``jacobi_eig_cluster`` on ``W`` and ``V0`` [B, k, k]
     (contiguous float32/float64 CUDA tensors of a side of
-    :func:`cluster_kernel_takes`) on the current stream: the sweeps of
-    :func:`jacobi_eig_cuda` in one cluster a matrix (``cluster`` CTAs, by
+    :func:`cluster_kernel_takes`) on the current stream, with ``stale`` a
+    0-d bool CUDA tensor: ``full`` sweeps from V0 when it is set, else
+    ``warm``, in one cluster a matrix (``cluster`` CTAs, by
     default :func:`cluster_size`'s choice), the angles logged and replayed
     on V0 by a second launch, then P = V max(w, 0) V' from W's diagonal as
     a batched product (``eigh.sym_reconstruct``). Returns (P, V). Does not
@@ -259,7 +297,7 @@ def jacobi_eig_large_cuda(W, V0, stale, warm: int, full: int, n_full=None):
     """Launch ``jacobi_eig_large`` on ``W`` and ``V0`` [B, k, k] (contiguous
     float32/float64 CUDA tensors of side 2 or an even side above 48,
     :func:`large_kernel_takes`) on the current stream: the sweeps of
-    :func:`jacobi_eig_cuda`, then P = V max(w, 0) V' from W's diagonal
+    :func:`jacobi_eig_cluster_cuda`, then P = V max(w, 0) V' from W's diagonal
     after them as a batched product (``eigh.sym_reconstruct``). Returns
     (P, V). Does not count launches."""
     _check_inputs("jacobi_eig_large", large_kernel_takes, W, V0, stale, n_full)
@@ -281,7 +319,9 @@ def jacobi_eig_large_cuda(W, V0, stale, warm: int, full: int, n_full=None):
     return eigh_mod.sym_reconstruct(w, V), V
 
 
-# kernel_for's name -> its launcher
+# kernel_for's name -> its launcher: jacobi_eig's takes (X, V_prev, warm,
+# full, n_full), the others (W, V0, stale, warm, full, n_full) after
+# eigh.amortized_rotate
 LAUNCHERS = {"jacobi_eig": jacobi_eig_cuda, "jacobi_eig_cluster": jacobi_eig_cluster_cuda,
              "jacobi_eig_large": jacobi_eig_large_cuda}
 
@@ -332,19 +372,25 @@ def launches_of(kernel: str) -> int:
 
 def psd_project_amortized(X, V_prev, warm_sweeps: int = 2, full_sweeps: int = 8):
     """The amortized PSD projection of a stack [B, k, k] from the carried
-    basis ``V_prev``: on a CUDA device :func:`eigh.amortized_rotate` and one
-    counted launch of the side's kernel (:func:`kernel_for`, through its
-    launcher in ``LAUNCHERS``), the stale flag never leaving the card, or at
-    an odd side the reference's eigh branch; on the CPU the plain version
-    :func:`eigh.psd_project_amortized`. Returns (P, V)."""
+    basis ``V_prev``: on a CUDA device one counted launch of ``jacobi_eig``
+    on (X, V_prev) at the even sides 4..48, else :func:`eigh.amortized_rotate`
+    and one counted launch of the side's kernel (:func:`kernel_for`, through
+    its launcher in ``LAUNCHERS``), the stale flag never leaving the card,
+    or at an odd side the reference's eigh branch; on the CPU the plain
+    version :func:`eigh.psd_project_amortized`. Returns (P, V)."""
     if X.device.type == "cpu":
         return eigh_mod.psd_project_amortized(X, V_prev, warm_sweeps, full_sweeps)
-    W, V0, stale = eigh_mod.amortized_rotate(X, V_prev)
     k = X.shape[-1]
     kernel = kernel_for(k, X.dtype)
+    key = (kernel, k, str(X.dtype).split(".")[-1])
+    if kernel == "jacobi_eig":
+        P, V, _ = jacobi_eig_cuda(X.contiguous(), V_prev.contiguous(), warm_sweeps,
+                                  full_sweeps, _tally(key, X.device))
+        psd_project_amortized.launches[key] += 1
+        return P, V
+    W, V0, stale = eigh_mod.amortized_rotate(X, V_prev)
     if kernel is None:
         return eigh_mod.amortized_eigh(W)
-    key = (kernel, k, str(X.dtype).split(".")[-1])
     out = LAUNCHERS[kernel](W, V0, stale, warm_sweeps, full_sweeps, _tally(key, X.device))
     psd_project_amortized.launches[key] += 1
     return out

@@ -478,54 +478,85 @@ def _eig_diff(X, got, ref):
             (rec(got[1]) - rec(ref[1])).abs().max().item())
 
 
+def _fused_against_plain(X, V0, dtype, tol, n_full=None):
+    """jacobi_eig on (X, V0) against eigh.psd_project_amortized: P and V
+    diag(V'XV) V' within ``tol`` of max |X|, V itself in float64, the
+    kernel's flag the plain rule's. Returns the rule's flag."""
+    P, V, stale = JE.jacobi_eig_cuda(X, V0, 2, 8, n_full)
+    torch.cuda.synchronize()
+    ref = eigh.psd_project_amortized(X, V0, 2, 8)
+    rule = bool(eigh.amortized_rotate(X, V0)[2])
+    dP, dV, dR = _eig_diff(X, (P, V), ref)
+    scale = X.abs().max().item()
+    assert bool(stale) == rule
+    assert dP <= tol * scale and dR <= tol * scale, (dP, dR)
+    if dtype == torch.float64:
+        assert dV <= tol * scale, dV
+    return rule
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
 def test_jacobi_eig_kernel_matches_plain_on_card(cuda, dtype, tol):
-    """The warm-started Jacobi kernel against its plain version, every
-    even k of its domain, B in {1, 31, 2498} (k <= 16) or {1, 31}, warm (2
-    sweeps) and stale (8 sweeps, from I), as the staleness rule classes
-    them: one full-sweep tally a stale launch; P and V diag(V'XV) V' within ``tol``
-    of max |X|, and in float64 V itself."""
+    """The amortized projection's kernel (the rotation, the staleness test
+    and the sweeps in one launch) on (X, V_prev) against its plain version,
+    every even k of its domain, B in {1, 31, 2498} (k <= 16) or {1, 31},
+    warm (2 sweeps) and stale (8 sweeps, from I), as the staleness rule
+    classes them: the kernel's flag the rule's, one full-sweep tally a
+    stale launch; P and V diag(V'XV) V' within ``tol`` of max |X|, and in
+    float64 V itself."""
     n_full = torch.zeros(1, dtype=torch.int32, device=cuda)
     n_stale = 0
     for k in range(4, 49, 2):
         for B in (1, 31, 2498) if k <= 16 else (1, 31):
             for warm in (True, False):
-                X, W, V0 = _eig_case(B, k, warm, dtype, cuda, seed=100 * k + B)
-                stale = eigh.amortized_rotate(X, V0)[2]
-                assert bool(stale) != warm, (k, B, warm)
-                n_stale += not warm
-                got = JE.jacobi_eig_cuda(W, V0, stale, 2, 8, n_full)
-                torch.cuda.synchronize()
-                ref = JE.jacobi_eig_plain(W, V0, stale, 2, 8)
-                dP, dV, dR = _eig_diff(X, got, ref)
-                scale = X.abs().max().item()
-                assert dP <= tol * scale and dR <= tol * scale, (k, B, warm, dP, dR)
-                if dtype == torch.float64:
-                    assert dV <= tol * scale, (k, B, warm, dV)
+                X, _, V0 = _eig_case(B, k, warm, dtype, cuda, seed=100 * k + B)
+                rule = _fused_against_plain(X, V0, dtype, tol, n_full)
+                assert rule != warm, (k, B, warm)
+                n_stale += rule
     assert n_full.item() == n_stale
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+def test_jacobi_eig_one_stale_block_and_past_one_wave_on_card(cuda, dtype, tol):
+    """One stale block among 2,497 warm ones sets the kernel's flag and sends
+    every block to the full sweeps (the plain version's P and V), counted
+    once by the tally; stacks past one wave of the persistent grid
+    (``jacobi_eig.eig_wave``; the warps store their earlier groups' W and V
+    across the grid barrier) at k = 8 (register body) and 32 (shared-memory
+    body), warm and stale, match the plain version."""
+    n_full = torch.zeros(1, dtype=torch.int32, device=cuda)
+    X, _, V0 = _eig_case(2498, 16, True, dtype, cuda, seed=3)
+    V0[1000] = torch.eye(16, dtype=dtype, device=cuda)
+    assert _fused_against_plain(X, V0, dtype, tol, n_full)
+    assert n_full.item() == 1
+    for k in (8, 32):
+        B = JE.eig_wave(k, dtype, cuda.index or 0) * 3 // 2 + 1
+        for warm in (True, False):
+            X, _, V0 = _eig_case(B, k, warm, dtype, cuda, seed=k + warm)
+            assert _fused_against_plain(X, V0, dtype, tol) != warm
+
+
+@pytest.mark.cuda
 def test_jacobi_eig_refuses_bad_input_on_card(cuda):
-    _, W, V0 = _eig_case(4, 16, True, torch.float32, cuda, seed=0)
-    stale = torch.tensor(False, device=cuda)
-    for args in ((W.transpose(1, 2), V0), (W, V0.transpose(1, 2)), (W.half(), V0.half()),
-                 (W, V0.double()), (W[:, :15, :15].contiguous(), V0[:, :15, :15].contiguous()),
-                 (W.cpu(), V0.cpu())):
+    X, _, V0 = _eig_case(4, 16, True, torch.float32, cuda, seed=0)
+    for args in ((X.transpose(1, 2), V0), (X, V0.transpose(1, 2)), (X.half(), V0.half()),
+                 (X, V0.double()), (X[:, :15, :15].contiguous(), V0[:, :15, :15].contiguous()),
+                 (X.cpu(), V0.cpu())):
         with pytest.raises(ValueError):
-            JE.jacobi_eig_cuda(*args, stale, 2, 8)
-    _, W49, V49 = _eig_case(2, 49, False, torch.float32, cuda, seed=0)
+            JE.jacobi_eig_cuda(*args, 2, 8)
+    X49, _, V49 = _eig_case(2, 49, False, torch.float32, cuda, seed=0)
     with pytest.raises(ValueError):
-        JE.jacobi_eig_cuda(W49, V49, stale, 2, 8)
+        JE.jacobi_eig_cuda(X49, V49, 2, 8)
     _, W16, V16 = _eig_case(2, 16, False, torch.float32, cuda, seed=0)
     with pytest.raises(ValueError):
-        JE.jacobi_eig_large_cuda(W16, V16, stale, 2, 8)
-    _, W50, V50 = _eig_case(2, 50, False, torch.float32, cuda, seed=0)
+        JE.jacobi_eig_large_cuda(W16, V16, torch.tensor(False, device=cuda), 2, 8)
+    X50, _, V50 = _eig_case(2, 50, False, torch.float32, cuda, seed=0)
     with pytest.raises(ValueError):
-        JE.jacobi_eig_cuda(W50, V50, stale, 2, 8)
+        JE.jacobi_eig_cuda(X50, V50, 2, 8)
     with pytest.raises(ValueError):
-        JE.jacobi_eig_cuda(W, V0, stale.int(), 2, 8)
+        JE.jacobi_eig_cuda(X, V0, 2, 8, torch.zeros(1, dtype=torch.int64, device=cuda))
 
 
 @pytest.mark.cuda

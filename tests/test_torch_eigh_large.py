@@ -105,7 +105,7 @@ def test_kernel_for_routes_every_side():
     for k in (5, 50):
         W = torch.as_tensor(sym_stack(1, k, seed=k))
         with pytest.raises(ValueError):
-            JE.jacobi_eig_cuda(W, W.clone(), stale, 2, 8)
+            JE.jacobi_eig_cuda(W, W.clone(), 2, 8)
         with pytest.raises(ValueError):
             JE.jacobi_eig_large_cuda(W, W.clone(), stale, 2, 8)
         with pytest.raises(ValueError):

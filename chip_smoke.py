@@ -32,10 +32,11 @@ code:
    and ``torch.linalg.eigh`` yardstick with CUDA events; then the exp/pow
    kernel against its plain version (float32 and float64, primal and dual
    rows of all four cases, pow at alpha 0.3, 0.5, 0.8, N in {1, 1000,
-   65122}; every exp row at the plain version's bits), timed and bounded
-   at N = 65,122, with the exp rows' case mix and lane efficiency (the
-   kernel's, from its counting build's warp passes, and one thread a
-   row's, reckoned from the plain version's per-row counts);
+   65122}; every exp row and every float64 pow row at the plain version's
+   bits), timed and bounded at N = 65,122, with both kernels' case mix and
+   lane efficiency (the kernel's, from its counting build's warp passes,
+   and one thread a row's, reckoned from the plain version's per-row
+   counts);
 4. slice: solves ``problems.block_sdp(512, 16, 512, seed=0)`` with CSR A
    through ``Model.optimize`` on the card with plain ADMM, in float64 and
    float32 (a first solve, then a second on the same model), against the
@@ -104,7 +105,13 @@ code:
    ending, and the loose phase's iter/s against full float32 at fixed
    work; (c) 2,048 3-qubit state estimates through the complex PSD cone
    in float64 and float32 against their closed form, the [2048, 16]
-   bucket through ``jacobi_proj``;
+   bucket through ``jacobi_proj``; (d) l1.5 regression in a9a's shape
+   (``problems.pnorm_regression``, a sum of powers through 32,561 power
+   cones, float64, 9a's settings with 30,000 iterations and a 300 s time
+   limit) against ``pnorm_optimum``, the pow
+   kernel on every projection at N = 32,561: at the first, middle and last
+   the kernel is held to the plain version's bits, timed, its case mix,
+   Newton steps a row, lane efficiency and bound logged;
 10. backends and examples: (a) the amortized backend's kernel at the
    sides 4..48 (``csrc/jacobi_eig.cu``: the rotation, the staleness test
    over the stack and the sweeps of a projection in one cooperative
@@ -1149,24 +1156,34 @@ def cone_bound_ms(stats, ops, n, dtype_name, with_alpha):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def exp_work(V, dual, tol, got, ref, stats, lib, max_iter=100):
-    """The exp kernel's rows ``got`` against the plain version's ``ref``
-    (``stats``: its work, per row too) on the rows (V, dual, tol): the rows
-    whose bits differ, the case mix, and the lane efficiency (Newton lane
-    steps over 32 times the warp passes) of the kernel (its counting build
-    ``lib``, one launch) and of one thread a row (reckoned from the per-row
-    counts)."""
+def cone_work(V, dual, tol, got, ref, stats, lib, max_iter=100, alpha=None):
+    """The exp kernel's rows ``got`` (with ``alpha``, the pow kernel's)
+    against the plain version's ``ref`` (``stats``: its work, per row too)
+    on the rows (V, dual, tol): the rows whose bits differ, the case mix,
+    the Newton steps a case-4 row (mean, most), and the lane efficiency
+    (Newton lane steps over 32 times the warp passes) of the kernel and of
+    one thread a row (reckoned from the per-row counts). The exp kernel's
+    warp passes come from one launch of its counting build ``lib``; the pow
+    kernel runs one thread a row, so its passes are that layout's."""
     from cosmo_tpu_torch import profile_exp as PE
 
-    _, passes, steps = PE.counted_launch(lib, V, dual, tol, max_iter)
-    return dict(rows_differing=PE.differing_rows(got, ref), cases=PE.case_mix(V, dual),
-                warp_passes=passes, lane_steps=steps,
+    if alpha is None:
+        _, passes, steps = PE.counted_launch(lib, V, dual, tol, max_iter)
+    else:
+        passes = PE.thread_layout_passes(stats["row_newton"])
+        steps = stats.get("newton", 0)
+    newton = stats["row_newton"][stats["row_evals"] > 0].double()
+    return dict(rows_differing=PE.differing_rows(got, ref),
+                cases=PE.case_mix(V, dual, alpha, tol), warp_passes=passes, lane_steps=steps,
+                newton_mean=newton.mean().item() if newton.numel() else 0.0,
+                newton_max=int(newton.max().item()) if newton.numel() else 0,
                 lane_efficiency=PE.lane_efficiency(stats.get("newton", 0), passes),
                 lane_efficiency_one_thread=PE.thread_layout_efficiency(stats["row_newton"]))
 
 
-def exp_work_text(row):
-    return (f"cases 1-4 {row['cases']}, rows differing {row['rows_differing']}, lane "
+def cone_work_text(row):
+    return (f"cases 1-4 {row['cases']}, rows differing {row['rows_differing']}, Newton "
+            f"steps a case-4 row {row['newton_mean']:.2f} (most {row['newton_max']}), lane "
             f"efficiency {row['lane_efficiency']:.4f} ({row['warp_passes']} warp passes, "
             f"{row['lane_steps']} lane steps; one thread a row "
             f"{row['lane_efficiency_one_thread']:.4f})")
@@ -1177,8 +1194,9 @@ def phase_cone_kernel(device, sizes=CONE_SIZES, reps=10):
     and dual rows, pow at alpha in ``CONE_ALPHAS``, N in ``sizes``. At the
     largest N (the 9a path's count of exp cones) each entry is timed
     (kernel ``launch_ms`` and ``device_ms``, plain ``launch_ms``) and
-    bounded. Every exp row must have the plain version's bits; the exp
-    rows' case mix and lane efficiencies (:func:`exp_work`) are logged."""
+    bounded. Every exp row and every float64 pow row must have the plain
+    version's bits; the case mix and lane efficiencies of both kernels
+    (:func:`cone_work`) are logged."""
     import torch
     from cosmo_tpu_torch import profile_exp as PE
     from cosmo_tpu_torch.kernel_timing import device_ms, launch_ms
@@ -1206,8 +1224,7 @@ def phase_cone_kernel(device, sizes=CONE_SIZES, reps=10):
                 got = launch(*args, it)
                 torch.cuda.synchronize()
                 stats = {}
-                ref = plain(*args, it, stats=stats,
-                            **(dict(per_row=True) if family == "exp" else {}))
+                ref = plain(*args, it, stats=stats, per_row=True)
                 # a NaN where the plain version has one is agreement
                 nan_same = bool(torch.equal(torch.isnan(got), torch.isnan(ref)))
                 diff = torch.where(torch.isnan(got) & torch.isnan(ref), 0.0, got - ref)
@@ -1219,9 +1236,12 @@ def phase_cone_kernel(device, sizes=CONE_SIZES, reps=10):
                 else:
                     ok = over == 0
                 ok = ok and nan_same
-                work = (exp_work(V, dual, tol, got, ref, stats, counting)
-                        if family == "exp" else {})
-                ok = ok and work.get("rows_differing", 0) == 0
+                work = cone_work(V, dual, tol, got, ref, stats, counting, it,
+                                 None if family == "exp" else args[1])
+                # every exp row and every float64 pow row at the plain
+                # version's bits (float32 pow: the rule above)
+                ok = ok and (work["rows_differing"] == 0
+                             or (family == "pow" and dtype_name == "float32"))
                 stats = {k: v for k, v in stats.items() if not k.startswith("row_")}
                 bound_ms, bound_by = cone_bound_ms(stats, ops, n, dtype_name,
                                                    family == "pow")
@@ -1241,8 +1261,8 @@ def phase_cone_kernel(device, sizes=CONE_SIZES, reps=10):
                 log(f"[kernel] exp_pow_proj/{family}{'' if a is None else f' a={a}'} "
                     f"{dtype_name} N={n:5d} err={err:.3e} (tol {CONE_TOL[dtype_name]:.0e}"
                     f"*{scale:.2f}, rows over {over}) lane work {stats}{times} "
-                    f"bound={bound_ms:.5f} ({bound_by})"
-                    f"{'; ' + exp_work_text(row) if work else ''} {'ok' if ok else 'FAIL'}")
+                    f"bound={bound_ms:.5f} ({bound_by}); {cone_work_text(row)} "
+                    f"{'ok' if ok else 'FAIL'}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"the exp/pow kernel disagrees with its plain version: {bad}")
@@ -1368,10 +1388,12 @@ def tomography_closed_form(C):
 
 
 def phase_cones(device, smi, seed):
-    """9a logistic_a9a, 9b block_sdp_8x256_mixed, 9c hermitian_tomography."""
+    """9a logistic_a9a, 9b block_sdp_8x256_mixed, 9c hermitian_tomography,
+    9d pnorm_a9a."""
     return dict(logistic=phase_logistic(device, smi, seed),
                 mixed=phase_mixed(device, smi),
-                tomography=phase_tomography(device, smi, seed))
+                tomography=phase_tomography(device, smi, seed),
+                pnorm=phase_pnorm(device, smi, seed))
 
 
 def phase_logistic(device, smi, seed):
@@ -1400,7 +1422,7 @@ def phase_logistic(device, smi, seed):
     model = pt.Model(pt.Settings(**LOGISTIC_SETTINGS), device=device).set(P, q, A, b, sets)
     # the solve's first, middle and last exp stacks, kept by reference (no
     # copy, no device work, three stacks' memory)
-    with PE.recorded_exp_stacks(keep=(0, PE.PATH_MIDDLE)) as stacks:
+    with PE.recorded_stacks("exp", keep=(0, PE.PATH_MIDDLE)) as stacks:
         res, counts = counted_optimize(model)
     info = model.last_solve
     x = res.x
@@ -1433,23 +1455,23 @@ def phase_logistic(device, smi, seed):
     if not (abs(out["loss_rel_err"]) <= 1e-4 and out["grad_ratio"] <= 1e-3
             and abs(res.obj_val - f_opt) <= 2.0 * gap + 1e-9 * f_opt):
         raise AssertionError(f"9a: {out}")
-    out["path_rows"] = exp_path_rows(stacks, smi)
+    out["path_rows"] = path_rows(stacks, smi, "9a", PE.PATH_MIDDLE)
     return out
 
 
-# 9a's stacks on which the exp kernel is held to its plain version and
-# timed: its first, middle and last projection
+# the stacks of 9a and 9d on which their kernel is held to its plain
+# version and timed: the first, middle and last projection
 PATH_STACKS = ("first", "middle", "last")
 
 
-def exp_path_rows(stacks, smi, reps=10):
-    """The exp kernel on 9a's own rows (``stacks``, a
-    ``profile_exp.recorded_exp_stacks`` record) at its first, middle and
-    last projection: every row at the plain version's bits, the kernel
-    timed (``launch_ms``, ``device_ms``; on the middle one the plain
-    version's checking call too, work counts and all), the case mix,
-    evaluations, Newton lane steps, lane efficiencies (:func:`exp_work`)
-    and the bound."""
+def path_rows(stacks, smi, label, middle, reps=10):
+    """A path's kernel on its own rows (``stacks``, a
+    ``profile_exp.recorded_stacks`` record of 9a's exp or 9d's pow stacks,
+    ``label`` "9a" or "9d") at its first, ``middle`` and last projection:
+    every row at the plain version's bits, the kernel timed (``launch_ms``,
+    ``device_ms``; on the middle one the plain version's checking call too,
+    work counts and all), the case mix, evaluations, Newton lane steps,
+    lane efficiencies (:func:`cone_work`) and the bound."""
     import torch
     from cosmo_tpu_torch import profile_exp as PE
     from cosmo_tpu_torch.kernel_timing import device_ms, launch_ms
@@ -1457,44 +1479,118 @@ def exp_path_rows(stacks, smi, reps=10):
     from cosmo_tpu_torch.ops import exp_pow_proj as K
 
     counting = PE.profile_library()
-    dual, tol, it = stacks["is_dual"], stacks["tol"], stacks["max_iter"]
+    dual, tol, it, alpha = stacks["is_dual"], stacks["tol"], stacks["max_iter"], stacks["alpha"]
+    if alpha is None:
+        family, ops, args = "exp", EXP_OPS, (dual, tol, it)
+        kernel, plain = K.exp_proj_cuda, E.project_exp_plain
+    else:
+        family, ops, args = "pow", POW_OPS, (alpha, dual, tol, it)
+        kernel, plain = K.pow_proj_cuda, E.project_pow_plain
     n_proj = stacks["n"]
-    if n_proj <= PE.PATH_MIDDLE + 1:
-        raise AssertionError(f"9a: {n_proj} projections, none past the middle stack "
-                             f"{PE.PATH_MIDDLE}")
+    if n_proj <= middle + 1:
+        raise AssertionError(f"{label}: {n_proj} projections, none past the middle stack "
+                             f"{middle}")
     rows = []
-    for name, k in zip(PATH_STACKS, (0, PE.PATH_MIDDLE, n_proj - 1)):
+    for name, k in zip(PATH_STACKS, (0, middle, n_proj - 1)):
         V = PE.recorded_stack(stacks, k)
-        got = K.exp_proj_cuda(V, dual, tol, it)
+        got = kernel(V, *args)
         torch.cuda.synchronize()
         stats = {}
-        # the plain version (~2 s a call) is timed by its checking call, on
-        # the kernels line's stack
+        # the plain version (~2 s a call for exp) is timed by its checking
+        # call, on the kernels line's stack
         t = time.perf_counter()
-        ref = E.project_exp_plain(V, dual, tol, it, stats=stats, per_row=True)
+        ref = plain(V, *args, stats=stats, per_row=True)
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.perf_counter() - t) if name == "middle" else None
-        work = exp_work(V, dual, tol, got, ref, stats, counting, it)
+        work = cone_work(V, dual, tol, got, ref, stats, counting, it, alpha)
         stats = {key: v for key, v in stats.items() if not key.startswith("row_")}
         diff = torch.where(torch.isnan(got) & torch.isnan(ref), 0.0, got - ref)
-        bound_ms, bound_by = cone_bound_ms(stats, EXP_OPS, V.shape[0], "float64", False)
+        bound_ms, bound_by = cone_bound_ms(stats, ops, V.shape[0], "float64",
+                                           alpha is not None)
         row = dict(stack=name, projection=k, of=n_proj, N=V.shape[0],
                    max_abs_err=diff.abs().max().item(), max_abs_x=V.abs().max().item(),
                    stats=stats, bound_ms=bound_ms, bound_by=bound_by,
-                   ms=launch_ms(lambda: K.exp_proj_cuda(V, dual, tol, it), reps),
-                   device_ms=device_ms(lambda: K.exp_proj_cuda(V, dual, tol, it), reps),
+                   ms=launch_ms(lambda: kernel(V, *args), reps),
+                   device_ms=device_ms(lambda: kernel(V, *args), reps),
                    plain_ms=plain_ms, **work)
         rows.append(row)
-        log(f"[cones] 9a exp rows, projection {k} of {n_proj} (N={V.shape[0]}, float64): "
-            f"err {row['max_abs_err']:.3e}, {exp_work_text(row)}, evaluations "
+        log(f"[cones] {label} {family} rows, projection {k} of {n_proj} (N={V.shape[0]}, "
+            f"float64): err {row['max_abs_err']:.3e}, {cone_work_text(row)}, evaluations "
             f"{stats.get('evals', 0)}, Newton lane steps {stats.get('newton', 0)}, "
             f"ms={row['ms']:.4f} device={row['device_ms']:.4f}"
             f"{'' if plain_ms is None else f' plain={plain_ms:.2f}'} bound="
             f"{bound_ms:.5f} ({bound_by}) [{smi}]")
     bad = [r for r in rows if r["rows_differing"]]
     if bad:
-        raise AssertionError(f"9a: the exp kernel leaves the plain version's bits: {bad}")
+        raise AssertionError(f"{label}: the {family} kernel leaves the plain version's bits: "
+                             f"{bad}")
     return rows
+
+
+def phase_pnorm(device, smi, seed):
+    """9d: l1.5 regression min_w ||Z w - y||_p at the shape of LIBSVM's
+    a9a (``problems.pnorm_regression``: Z as 9a's, y = Z w_true + Student-t
+    noise of 3 degrees of freedom, made from ``seed``) as a sum of powers,
+    |r_i|^p <= u_i through 32,561 power cones (u_i, 1, r_i) of alpha 2/3,
+    float64 at 9a's settings with 30,000 iterations and a 300 s time limit
+    (``profile_exp.PNORM_SETTINGS``). Held to: Solved; one counted pow
+    kernel launch a projection, each on the 32,561 cones; ||Z w - y||_p of
+    the returned weights within 1e-6 of ``problems.pnorm_optimum``
+    (L-BFGS-B on the host); the objective within twice the solve's duality
+    gap of its optimum ||r||_p^p, plus 1e-6 of it. The solve's first,
+    middle and last pow stacks are kept (by reference, as 9a's): on them the
+    kernel is held to the plain version's bits and timed
+    (:func:`path_rows`)."""
+    import cosmo_tpu_torch as pt
+    from cosmo_tpu_torch import problems
+    from cosmo_tpu_torch import profile_exp as PE
+
+    t_wall = time.perf_counter()
+    n, d, nnz, p = PE.PNORM_SHAPE
+    t0 = time.perf_counter()
+    P, q, A, b, sets, (Z, y) = problems.pnorm_regression(n, d, nnz, p, seed=seed)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f_opt, _ = problems.pnorm_optimum(Z, y, p)
+    obj_opt = f_opt ** p
+    opt_s = time.perf_counter() - t0
+    model = pt.Model(pt.Settings(**PE.PNORM_SETTINGS), device=device).set(P, q, A, b, sets)
+    with PE.recorded_stacks("pow", keep=(0, PE.PNORM_MIDDLE)) as stacks:
+        res, counts = counted_optimize(model)
+    info = model.last_solve
+    x = res.x
+    loss = problems.pnorm_loss(Z, y, p, x[:d])
+    gap = abs(q @ x + b @ res.y)
+    ips = res.iter / info["iter_time"]
+    sizes = stacks["sizes"]
+    out = dict(status=res.status, iter=res.iter, obj=res.obj_val, f_opt=f_opt,
+               obj_opt=obj_opt, obj_rel_err=(res.obj_val - obj_opt) / obj_opt, gap=gap,
+               loss_rel_err=(loss - f_opt) / f_opt, solve_s=info["iter_time"],
+               iter_per_s=ips, setup_s=res.times.setup_time, gen_s=gen_s, opt_s=opt_s,
+               kkt_solver=info["kkt_solver"], syncs_per_iter=info["syncs"] / max(res.iter, 1),
+               launches=counts["exp_pow_proj/pow"], projections=info["projections"],
+               stack_sizes=sorted(sizes), shape=(A.shape, A.nnz, len(sets)))
+    log(f"[cones] 9d pnorm p={p} {n}x{d} (m {A.shape[0]}, n {A.shape[1]}, nnz {A.nnz}, "
+        f"{len(sets)} power cones) float64: {res.status}, {res.iter} iters, obj "
+        f"{res.obj_val:.10f} vs optimum {obj_opt:.10f} (rel {out['obj_rel_err']:.2e}, gap "
+        f"{gap:.3e}), ||Zw - y||_p rel err {out['loss_rel_err']:.2e} (limit 1e-06), setup "
+        f"{res.times.setup_time:.2f} s, solve {info['iter_time']:.2f} s, {ips:.1f} iter/s, "
+        f"KKT {info['kkt_solver']}, {out['syncs_per_iter']:.2f} host waits an iteration, pow "
+        f"kernel launches {counts['exp_pow_proj/pow']} / projections {info['projections']} "
+        f"at N {sorted(sizes)}, generated {gen_s:.2f} s, optimum {opt_s:.2f} s [{smi}]")
+    if res.status != "Solved":
+        raise AssertionError(f"9d: {res.status}")
+    if not (counts["exp_pow_proj/pow"] == info["projections"] == stacks["n"] > 0
+            and sizes == {n}):
+        raise AssertionError(f"9d: {counts} launches for {info['projections']} projections "
+                             f"at N {sizes}")
+    if not (abs(out["loss_rel_err"]) <= 1e-6
+            and abs(res.obj_val - obj_opt) <= 2.0 * gap + 1e-6 * obj_opt):
+        raise AssertionError(f"9d: {out}")
+    out["path_rows"] = path_rows(stacks, smi, "9d", PE.PNORM_MIDDLE)
+    out["wall_s"] = time.perf_counter() - t_wall
+    log(f"[cones] 9d wall {out['wall_s']:.1f} s [{smi}]")
+    return out
 
 
 def phase_mixed(device, smi, fixed_iters=150):
@@ -2679,19 +2775,17 @@ def main(argv=None):
             bound_by=row["bound_by"],
             library_ms=row["library_ms"],
         ))
-    # the exp kernel on the 9a path's own rows (its middle projection,
-    # float64), the pow kernel at the 9a path's N (float64, alpha 0.5,
-    # launched on phase 4's pow cone)
-    n = max(CONE_SIZES)
-    path = next(r for r in cones["logistic"]["path_rows"] if r["stack"] == "middle")
-    pow_row = next(r for r in kernel_rows if r["kernel"] == "exp_pow_proj/pow"
-                   and r["dtype"] == "float64" and r.get("N") == n and r["alpha"] == 0.5)
+    # the exp kernel on the 9a path's own rows, the pow kernel on the 9d
+    # path's (each its middle projection, float64), with its path's launches
+    exp_path = next(r for r in cones["logistic"]["path_rows"] if r["stack"] == "middle")
+    pow_path = next(r for r in cones["pnorm"]["path_rows"] if r["stack"] == "middle")
     for name, row, launches, shape, where in (
-            ("exp_pow_proj/exp", path, cones["logistic"]["launches"],
-             dict(N=path["N"], dtype="float64", rows=f"9a projection {path['projection']}"),
-             "logistic_a9a"),
-            ("exp_pow_proj/pow", pow_row, plugins["pow_launches"],
-             dict(N=n, dtype="float64", alpha=0.5), "known pow_cone")):
+            ("exp_pow_proj/exp", exp_path, cones["logistic"]["launches"],
+             dict(N=exp_path["N"], dtype="float64",
+                  rows=f"9a projection {exp_path['projection']}"), "logistic_a9a"),
+            ("exp_pow_proj/pow", pow_path, cones["pnorm"]["launches"],
+             dict(N=pow_path["N"], dtype="float64", alpha=2 / 3,
+                  rows=f"9d projection {pow_path['projection']}"), "pnorm_a9a")):
         kernels.append(dict(
             name=name, route="cuda", source="cosmo_tpu_torch/csrc/exp_pow_proj.cu",
             replaces=("cosmo_tpu/ops/exp_pow.py:133" if name.endswith("exp")

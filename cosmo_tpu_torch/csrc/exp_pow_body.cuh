@@ -91,9 +91,17 @@ EP_HD double dv(double a, double b) {
   return a / b;
 #endif
 }
+#if defined(EXP_POW_HOST_SQRT) && !defined(__CUDA_ARCH__)
+// a host test's square roots (torch's on the CPU, which is the plain
+// version's there and, unlike the card's, not always correctly rounded)
+extern float (*host_sqrt32)(float);
+extern double (*host_sqrt64)(double);
+#endif
 EP_HD float sqrt_(float a) {
 #ifdef __CUDA_ARCH__
   return __fsqrt_rn(a);
+#elif defined(EXP_POW_HOST_SQRT)
+  return host_sqrt32(a);
 #else
   return sqrtf(a);
 #endif
@@ -101,6 +109,8 @@ EP_HD float sqrt_(float a) {
 EP_HD double sqrt_(double a) {
 #ifdef __CUDA_ARCH__
   return __dsqrt_rn(a);
+#elif defined(EXP_POW_HOST_SQRT)
+  return host_sqrt64(a);
 #else
   return sqrt(a);
 #endif

@@ -42,8 +42,11 @@
 //   cones, which set the time on the logistic path, run in few warps.
 // The cone's state lives in shared memory (the Newton step keeps its node,
 // t0, tol and r0 in registers), which keeps a float64 lane within 80
-// registers. The power cone (pow_proj_kernel, few cones on any path) stays
-// one thread a cone.
+// registers. The power cone (pow_proj_kernel) stays one thread a cone: its
+// rows (l1.5 regression's 32,561, phase 3's 65,122) fit in one wave of the
+// card, each warp's time is its longest Newton chain, and a persistent
+// form with case-4 rows queued and refilled into lanes was 1-5% slower on
+// them (PERF.md, the pow kernel).
 //
 // The row cursor and the count of warps that have left live in one of
 // kSlots static pairs, taken in turn by each launch; the last warp to

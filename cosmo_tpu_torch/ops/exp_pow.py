@@ -29,10 +29,11 @@ Dual cones use the Moreau identity Pi_{K*}(v) = v + Pi_K(-v)
 these rows: ``"rows"``, ``"evals"`` (evaluations of g(lambda) or of the
 pow Newton's end point, by lanes still in their loop) and ``"newton"``
 (inner Newton steps of those lanes). ``chip_smoke.py`` bounds the kernel's
-time by them. With ``per_row``, :func:`project_exp_plain` also keeps each
-row's counts, ``"row_evals"`` and ``"row_newton"`` (int64 [N], 0 in cases
-1-3), beside the totals: the work of each lane of a one-thread-a-cone
-layout, from which ``chip_smoke.py`` reckons lane efficiencies.
+time by them. With ``per_row``, :func:`project_exp_plain` and
+:func:`project_pow_plain` also keep each row's counts, ``"row_evals"`` and
+``"row_newton"`` (int64 [N], 0 in cases 1-3), beside the totals: the work
+of each lane of a one-thread-a-cone layout, from which ``chip_smoke.py``
+reckons lane efficiencies.
 """
 from __future__ import annotations
 
@@ -245,9 +246,10 @@ def _phic(x0, z0, r, a):
                        min=1e-10)
 
 
-def _project_pow_case4(v, alpha, tol, max_iter, stats=None):
+def _project_pow_case4(v, alpha, tol, max_iter, stats=None, rows=None):
     """Newton on r (convexset.jl:676-704), each lane stopping on its own;
-    then one more evaluation of (px, py) at the final r."""
+    then one more evaluation of (px, py) at the final r (``rows``: the
+    lanes' rows, for per-row counts)."""
     x0, y0, z0 = v[:, 0], v[:, 1], v[:, 2]
     az0 = z0.abs()
     r = az0 / 2.0
@@ -256,7 +258,7 @@ def _project_pow_case4(v, alpha, tol, max_iter, stats=None):
         active = ~done
         if not bool(active.any()):
             break
-        _count(stats, "newton", active)
+        _count(stats, "newton", active, rows)
         px = _phic(x0, z0, r, alpha)
         py = _phic(y0, z0, r, 1.0 - alpha)
         phi = px ** alpha * py ** (1.0 - alpha) - r
@@ -268,7 +270,7 @@ def _project_pow_case4(v, alpha, tol, max_iter, stats=None):
         r_new = torch.minimum(torch.maximum(r - phi / dphi, torch.zeros_like(r)), az0)
         r = torch.where(active & ~conv, r_new, r)
         done = done | conv
-    _count(stats, "evals", torch.ones_like(done))
+    _count(stats, "evals", torch.ones_like(done), rows)
     px = _phic(x0, z0, r, alpha)
     py = _phic(y0, z0, r, 1.0 - alpha)
     z_out = z0 * r / torch.clamp(az0, min=_tiny(v.dtype))
@@ -286,20 +288,27 @@ def _project_pow_rows(U, alpha, tol, max_iter, stats=None):
     rest = ~(case1 | case2 | case3)
     if bool(rest.any()):
         idx = rest.nonzero().squeeze(1)
-        out[idx] = _project_pow_case4(U[idx], alpha[idx], tol[idx], max_iter, stats)
+        out[idx] = _project_pow_case4(U[idx], alpha[idx], tol[idx], max_iter, stats, idx)
     return out
 
 
-def project_pow_plain(V, alpha, is_dual, tol=None, max_iter: int = 20, stats=None):
+def project_pow_plain(V, alpha, is_dual, tol=None, max_iter: int = 20, stats=None,
+                      per_row: bool = False):
     """Project the rows of V [N, 3] onto K_pow(alpha) [N], or onto its dual
     where ``is_dual``; ``tol`` [N] per-cone tolerances (default 1e-8). The
-    plain version of the kernel (``exp_pow_proj.project_pow``)."""
+    plain version of the kernel (``exp_pow_proj.project_pow``).
+    ``stats``: the work counts (module docstring), with ``per_row`` each
+    row's too."""
     if V.shape[0] == 0:
         return V
     if tol is None:
         tol = torch.full((V.shape[0],), 1e-8, dtype=V.dtype, device=V.device)
     if stats is not None:
         stats["rows"] = stats.get("rows", 0) + V.shape[0]
+        if per_row:
+            for key in ("row_evals", "row_newton"):
+                stats.setdefault(key, torch.zeros(V.shape[0], dtype=torch.int64,
+                                                  device=V.device))
     U = torch.where(is_dual[:, None], -V, V)
     P = _project_pow_rows(U, alpha, tol, max_iter, stats)
     return torch.where(is_dual[:, None], V + P, P)

@@ -1,8 +1,9 @@
 """Exponential- and power-cone projections: the wrappers that launch the
-hand-written CUDA kernels (``csrc/exp_pow_proj.cu``: the exp cone's
-persistent step machine, its case-4 rows queued and refilled into lanes,
-one Newton step a pass, a cone's lanes evaluating ahead; the pow cone's
-one thread a cone) on a CUDA tensor and run the plain PyTorch version
+hand-written CUDA kernels (``csrc/exp_pow_proj.cu``, persistent warps
+that split rows by case, queue the case-4 rows and refill lanes from the
+queue, one Newton step a pass: the exp cone's step machine with a cone's
+lanes evaluating ahead, the pow cone's Newton with alpha's constants
+computed once a warp) on a CUDA tensor and run the plain PyTorch version
 (:mod:`.exp_pow`) on a CPU tensor.
 
 The kernel is not a port of a TPU kernel: the JAX package projects these
@@ -28,29 +29,47 @@ from . import cuda_build
 from .exp_pow import project_exp_plain, project_pow_plain
 
 
+# the C entries of each loaded library, looked up once: library -> {(family,
+# dtype): entry}; keyed by the library, which profile_exp swaps
+_ENTRIES: dict = {}
+
+
+def _entry(prefix, dtype):
+    lib = cuda_build.exp_pow_library()
+    entries = _ENTRIES.get(lib)
+    if entries is None:
+        entries = _ENTRIES[lib] = {
+            (family, t): getattr(lib, f"{family}_{sfx}")
+            for family in ("exp_proj", "pow_proj")
+            for t, sfx in ((torch.float32, "f32"), (torch.float64, "f64"))}
+    return entries[prefix, dtype]
+
+
 def _launch(prefix, V, alpha, is_dual, tol, max_iter):
     """One launch of the C entry ``<prefix>_<f32|f64>`` on the rows of
     ``V`` [N, 3] on the current stream (``alpha`` None for exp). Raises on
-    input the kernel does not take and when the launch reports an error."""
+    input the kernel does not take and when the launch reports an error.
+    A bool ``is_dual`` goes to the kernel as its bytes (a view, no copy),
+    so that a projection is one device operation."""
     if V.device.type != "cuda":
         raise ValueError(f"{prefix} needs a CUDA tensor, got {V.device}")
     if V.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"{prefix} takes float32/float64, got {V.dtype}")
     if V.dim() != 2 or V.shape[1] != 3:
         raise ValueError(f"{prefix} takes [N, 3] rows, got {tuple(V.shape)}")
-    rows = {"is_dual": is_dual, "tol": tol, **({} if alpha is None else {"alpha": alpha})}
-    for what, t in rows.items():
+    rows = (("is_dual", is_dual), ("tol", tol)) + (() if alpha is None else (("alpha", alpha),))
+    for what, t in rows:
         if t.shape != (V.shape[0],) or t.device != V.device:
             raise ValueError(f"{prefix}: {what} must be [N] on {V.device}, got "
                              f"{tuple(t.shape)} on {t.device}")
     V = V.contiguous()
-    per_row = [t.to(V.dtype).contiguous() for t in (() if alpha is None else (alpha,))]
-    per_row += [is_dual.to(torch.uint8).contiguous(), tol.to(V.dtype).contiguous()]
+    flags = is_dual.view(torch.uint8) if is_dual.dtype == torch.bool else is_dual.to(torch.uint8)
+    per_row = [] if alpha is None else [alpha.to(V.dtype).contiguous()]
+    per_row += [flags.contiguous(), tol.to(V.dtype).contiguous()]
     out = torch.empty_like(V)
-    fn = getattr(cuda_build.exp_pow_library(),
-                 f"{prefix}_{'f32' if V.dtype == torch.float32 else 'f64'}")
-    err = fn(V.data_ptr(), *(t.data_ptr() for t in per_row), out.data_ptr(), V.shape[0],
-             int(max_iter), torch.cuda.current_stream(V.device).cuda_stream)
+    err = _entry(prefix, V.dtype)(
+        V.data_ptr(), *(t.data_ptr() for t in per_row), out.data_ptr(), V.shape[0],
+        int(max_iter), torch.cuda.current_stream(V.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{prefix} kernel launch failed: CUDA error {err} "
                            f"(N={V.shape[0]}, {V.dtype})")

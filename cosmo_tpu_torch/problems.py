@@ -433,3 +433,65 @@ def logistic_optimum(Z, y, lam: float, gtol: float = 1e-10, max_iter: int = 100)
         w, loss, g = w + a * step, new_loss, new_g
     raise RuntimeError(f"logistic_optimum: gradient {np.abs(g).max():.2e} after "
                        f"{max_iter} Newton steps")
+
+
+def pnorm_regression(n_samples: int, n_features: int, nnz_per_sample=None, p: float = 1.5,
+                     seed: int = 0):
+    """Robust regression min_w ||Z w - y||_p (1 < p) through power cones
+    K_pow(1/p), as a sum of powers (MOSEK Modeling Cookbook, "Power cone
+    optimization"): |r_i|^p <= u_i as (u_i, 1, r_i) in K_pow(1/p),
+    minimising sum_i u_i = ||r||_p^p over x = [w (d); u (N)], each cone on
+    its own sample. r_i = z_i'w - y_i. Z is :func:`logistic_data`'s
+    (LIBSVM-style binary rows with ``nnz_per_sample`` features set, or
+    Gaussian), w_true Gaussian and y = Z w_true + Student-t noise of 3
+    degrees of freedom, the heavy tails that an l_p fit with p < 2 is for,
+    all made from ``seed``. In the internal ``Ax + s = b`` form each
+    sample's three rows in sample order. ``A`` is scipy CSR (P the zero
+    matrix). Returns (P, q, A, b, sets, (Z, y))."""
+    import scipy.sparse as sp
+
+    Z, _ = logistic_data(n_samples, n_features, nnz_per_sample, seed)
+    rng = np.random.default_rng([seed, 1])
+    N, d = n_samples, n_features
+    y = np.asarray(Z @ rng.standard_normal(d)).ravel() + rng.standard_t(3, N)
+    i = np.arange(N)
+    Zc = sp.coo_matrix(Z)
+    c1 = 3 * i                           # the first row of sample i's cone
+    # b - A x: (u_i, 1, z_i'w - y_i)
+    rows = np.concatenate([c1, c1[Zc.row] + 2])
+    cols = np.concatenate([d + i, Zc.col])
+    vals = np.concatenate([-np.ones(N), -Zc.data])
+    A = sp.csr_matrix((vals, (rows, cols)), shape=(3 * N, d + N))
+    b = np.zeros(3 * N)
+    b[c1 + 1] = 1.0
+    b[c1 + 2] = -y
+    q = np.r_[np.zeros(d), np.ones(N)]
+    P = sp.csr_matrix((d + N, d + N))
+    sets = [C.PowerCone(1.0 / p) for _ in range(N)]
+    return P, q, A, b, sets, (Z, y)
+
+
+def pnorm_loss(Z, y, p: float, w):
+    """||Z w - y||_p, in float64 on the host."""
+    return float(np.sum(np.abs(np.asarray(Z @ w).ravel() - y) ** p) ** (1.0 / p))
+
+
+def pnorm_optimum(Z, y, p: float, gtol: float = 1e-12, max_iter: int = 20000):
+    """min_w ||Z w - y||_p on the host, independent of the ADMM solver:
+    scipy's L-BFGS-B on sum_i |r_i|^p with its gradient p Z' (|r|^(p-1)
+    sign r), to a projected gradient of ``gtol`` or until its line search
+    can descend no further. Returns (||Z w - y||_p, w); raises where the
+    gradient is then above 1e-8 of sum_i |r_i|^p."""
+    from scipy.optimize import minimize
+
+    def f(w):
+        r = np.asarray(Z @ w).ravel() - y
+        a = np.abs(r)
+        return float(np.sum(a ** p)), np.asarray(Z.T @ (p * a ** (p - 1.0) * np.sign(r))).ravel()
+
+    res = minimize(f, np.zeros(Z.shape[1]), jac=True, method="L-BFGS-B",
+                   options=dict(gtol=gtol, ftol=0.0, maxiter=max_iter, maxcor=30))
+    if not np.abs(res.jac).max() <= 1e-8 * max(res.fun, 1.0):
+        raise RuntimeError(f"pnorm_optimum: {res.message}, gradient "
+                           f"{np.abs(res.jac).max():.2e} at sum |r|^p {res.fun:.6e}")
+    return pnorm_loss(Z, y, p, res.x), res.x

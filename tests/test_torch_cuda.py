@@ -412,6 +412,33 @@ def test_exp_pow_kernel_refuses_bad_input_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_pow_kernel_on_recorded_pnorm_stacks(cuda):
+    """An l1.5 regression in a9a's shape (2,000 samples, a power cone
+    each) in float64 on the card: Solved, every
+    projection one pow launch, ||Z w - y||_p within 1e-6 of the L-BFGS-B
+    optimum; on its first, middle and last recorded stacks the kernel
+    gives the plain version's bits."""
+    from cosmo_tpu_torch import profile_exp as PE
+    from cosmo_tpu_torch.ops import exp_pow as E
+    from cosmo_tpu_torch.ops import exp_pow_proj as K
+
+    P, q, A, b, sets, (Z, y) = problems.pnorm_regression(2000, 123, 14, 1.5, seed=0)
+    model = pt.Model(pt.Settings(eps_abs=1e-5, eps_rel=1e-5, dtype=np.float64))
+    K.project_pow.launches = 0
+    with PE.recorded_stacks("pow") as stacks:
+        res = model.set(P, q, A, b, sets).optimize()
+    assert res.status == "Solved"
+    assert K.project_pow.launches == model.last_solve["projections"] == stacks["n"] > 0
+    f_opt, _ = problems.pnorm_optimum(Z, y, 1.5)
+    assert abs(problems.pnorm_loss(Z, y, 1.5, res.x[:123]) - f_opt) <= 1e-6 * f_opt
+    args = (stacks["alpha"], stacks["is_dual"], stacks["tol"], stacks["max_iter"])
+    for k in (0, stacks["n"] // 2, stacks["n"] - 1):
+        V = PE.recorded_stack(stacks, k)
+        got = K.pow_proj_cuda(V, *args)
+        assert PE.differing_rows(got, E.project_pow_plain(V, *args)) == 0, k
+
+
+@pytest.mark.cuda
 def test_logistic_regression_on_card(cuda):
     """An a9a-shaped logistic regression (2,000 samples) in float64 on the
     card: Solved, every projection of the 4,000 exp cones one kernel

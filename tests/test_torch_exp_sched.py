@@ -551,7 +551,7 @@ def test_recorded_exp_stacks_keep_each_call_and_hand_back_the_count():
     V, dual, tol = (torch.as_tensor(a) for a in _points(20, 27, np.float64))
     original, before = K.project_exp, K.project_exp.launches
     try:
-        with PE.recorded_exp_stacks() as record:
+        with PE.recorded_stacks("exp") as record:
             assert K.project_exp is not original
             K.project_exp.launches += 2   # the wrapped function counts on this name
             outs = [K.project_exp(V + k, dual, tol, 7) for k in range(3)]
@@ -566,7 +566,7 @@ def test_recorded_exp_stacks_keep_each_call_and_hand_back_the_count():
     with pytest.raises(RuntimeError, match="written after"):
         PE.recorded_stack(record, 1)
     # keep: only the calls named and the last one stay
-    with PE.recorded_exp_stacks(keep=(0, 2)) as record:
+    with PE.recorded_stacks("exp", keep=(0, 2)) as record:
         for k in range(5):
             K.project_exp(V + k, dual, tol)
     assert record["n"] == 5 and sorted(record["V"]) == [0, 2, 4]

@@ -6,10 +6,10 @@
 Phases, in order, except that 10a runs right after phase 3 (it counts a
 call's device kernels with torch.profiler, which records no device
 activity after phase 6's profiled windows in the same process), and that
-phases 7 and 11 run each in a process of its own on the card while this
-one runs phases 8, 10c, 10d and 10g (before 9 and the rest of 10): these
-wait on the host far more than on the card, and the rates they report are
-those of a shared card. Any failure ends the run with a non-zero exit
+phases 7, 10i and 11 run each in a process of its own on the card while
+this one runs phases 8, 10c, 10d and 10g (before 9 and the rest of 10):
+the run's time limit asks for it, and the rates they report are those of
+a shared card. Any failure ends the run with a non-zero exit
 code:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
@@ -17,13 +17,15 @@ code:
 2. build: compiles both kernels' libraries with nvcc for sm_90a, one nvcc
    per source, all started together: the Jacobi kernels' from
    ``cosmo_tpu_torch/csrc/jacobi_proj.cu``, ``jacobi_proj_rr.cu``,
-   ``jacobi_eig.cu``, ``jacobi_smem.cu``, ``jacobi_eig_cluster.cu`` and
-   ``jacobi_eig_large.cu``, the exp/pow cone projection's from
+   ``jacobi_eig.cu``, ``jacobi_smem.cu``, ``jacobi_eig_cluster.cu``,
+   ``jacobi_eig_grid.cu`` and ``jacobi_eig_large.cu``, the exp/pow cone
+   projection's from
    ``exp_pow_proj.cu`` (and beside them the exp kernel's counting build,
    ``profile_exp.profile_library``, ``-DEXP_PROJ_PROFILE``); prints the ptxas reports and fails if
    any Jacobi register body instantiation (``jacobi_proj_regs``) has a
    stack frame or spills, or an instantiation of the amortized projection
-   (``jacobi_eig``), the exp/pow or the cluster kernel spills;
+   (``jacobi_eig``), the exp/pow or the cluster kernel or the grid kernel's
+   float64 instantiation spills;
 3. kernel: holds the round-robin and the slot-rotation Jacobi projection
    kernels against their plain PyTorch versions on the card (float32 and
    float64, k in {4, 6, ..., 16, 24, 32, 48}, B in {1, 512, 2498, 8540},
@@ -136,10 +138,15 @@ code:
    {1, 8}, B = 1 from 640, warm and stale), each case through the kernel
    ``kernel_for`` routes it to (``csrc/jacobi_eig_cluster.cu``, a
    thread-block cluster a matrix, where W fits the largest cluster the
-   card schedules, whose cudaOccupancyMaxActiveClusters it prints, else
+   card schedules, whose cudaOccupancyMaxActiveClusters it prints;
+   ``csrc/jacobi_eig_grid.cu``, one cooperative grid a matrix, W in its
+   CTAs' shared memory, where that holds it, its shared memory a CTA
+   checked against ``jacobi_eig.grid_smem_bytes``; else
    ``csrc/jacobi_eig_large.cu``), timed and bounded at [8, 256] float64
-   and [1, 896] float32 through both kernels and at [1, 640] float64
-   through the large one, at 2 and 8 sweeps; (f) ``block_sdp(8, 256,
+   and [1, 896] float32 (the cluster kernel) and at [1, 640] and [1, 768]
+   float64 (the grid kernel), each beside ``jacobi_eig_large`` on the same
+   inputs, and [1, 1280] float64 (``jacobi_eig_large``), at 2 and 8
+   sweeps; (f) ``block_sdp(8, 256,
    256)`` at ``REF_BLOCK8X256``'s plain settings in float64 with
    ``eigh_backend="amortized"`` against ``REF_BLOCK8X256``, the cluster
    kernel on every projection, the full-sweep tally, and a second solve
@@ -150,8 +157,20 @@ code:
    and the first later one of each regime (warm, full sweeps) held kernel
    against plain version to its bits; (h) ``block_sdp(1, 640, 64)`` in
    float64 with the amortized backend for 30 iterations, its [1, 640]
-   bucket (past the cluster's bytes) through ``jacobi_eig_large`` on
-   every projection;
+   bucket (past the cluster's bytes) through ``jacobi_eig_grid`` on
+   every projection; (i) the max-cut SDP of a graph of G1's shape
+   (``problems.maxcut(800, 0.06, seed=0)``) in float64 with the amortized
+   backend at the default decomposition, eps 1e-5, max_iter 8,000: Solved,
+   its objective against ``REF_MAXCUT800`` (cosmo_tpu's), its optimality
+   certificate (the dual slack diag(x) - L/4 PSD, diag(Z) =
+   1 for the dual variable Z, the duality gap) within ``MAXCUT800_TOL``,
+   its [1, 768] bucket through ``jacobi_eig_grid`` on
+   every projection and the last one's kernel output at the plain
+   version's bits; iter/s, the bucket's full-sweep share and the grid
+   kernel's device share of one profiled window of 20 iterations; (j)
+   ``block_sdp(1, 1280, 64)`` in float64 with the amortized backend for 10
+   iterations, its [1, 1280] bucket (past the grid's bytes) through
+   ``jacobi_eig_large`` on every projection;
 11. mesh: ``Model.optimize(mesh=parallel.make_mesh())`` on ranks it spawns
    (gloo on the loopback, each process group with a 300 s time limit), after
    the unsharded references: (a) maxcut-10k at ``_bench_maxcut10k``'s
@@ -391,6 +410,16 @@ def phase_build():
         f"loads, registers): {cluster}")
     if len(cluster) != 4 or any(f[1] or f[2] for f in cluster.values()):
         raise AssertionError(f"{so.name}: jacobi_eig_cluster {cluster}")
+    # the grid kernel, f32 and f64: in float64, every path's type, its round
+    # state stays in registers (a spill fails the build); the float32 one
+    # is logged
+    grid = {("f64" if re.search(r"jacobi_eig_gridIdE", n) else "f32"): f
+            for n, f in ptxas_frames(report).items()
+            if re.search(r"jacobi_eig_gridI[fd]E", n)}
+    log(f"[build] jacobi_eig_grid instantiations (stack frame, spill stores, spill "
+        f"loads, registers): {grid}")
+    if sorted(grid) != ["f32", "f64"] or any(grid["f64"][1:3]):
+        raise AssertionError(f"{so.name}: jacobi_eig_grid {grid}")
     log(f"[build] in {seconds:.2f} s")
     return seconds
 
@@ -524,6 +553,7 @@ def counted_optimize(model, on_iter=None):
                  "exp_pow_proj/pow": K.project_pow.launches,
                  "jacobi_eig": JE.launches_of("jacobi_eig"),
                  "jacobi_eig_cluster": JE.launches_of("jacobi_eig_cluster"),
+                 "jacobi_eig_grid": JE.launches_of("jacobi_eig_grid"),
                  "jacobi_eig_large": JE.launches_of("jacobi_eig_large")}
 
 
@@ -827,8 +857,8 @@ class Beside:
     """A phase in a spawned process on the card, beside what the caller
     runs until :meth:`result`. Phases 7 and 11 wait on the host far more
     than on the card, so they run so, beside each other and beside 8,
-    10c, 10d and 10g; the rates of all of them are those of a shared
-    card. A failure on either side fails the run, and :meth:`stop` ends
+    10c, 10d and 10g; 10i runs beside them for the run's time limit; the
+    rates of all of them are those of a shared card. A failure on either side fails the run, and :meth:`stop` ends
     the process on every way out."""
 
     def __init__(self, name, phase, *args):
@@ -1693,13 +1723,15 @@ EIG_BATCHES = (1, 1000, 2498)
 EIG_TIMED = ((16, 2498), (8, 8540))
 WARM_SWEEPS = 2
 # phase 10e: the large-side kernels' shapes (k = 2 and sides above 48 at B
-# in {1, 8}; B = 1 from 640), and the three timed at 2 and 8 sweeps: 10f's
+# in {1, 8}; B = 1 from 640), and the five timed at 2 and 8 sweeps: 10f's
 # [8, 256] bucket in float64 and 10g's [1, 896] colpad bucket in float32
-# (jacobi_eig_cluster, beside jacobi_eig_large on the same inputs), and
-# 10h's [1, 640] bucket in float64 (jacobi_eig_large: past the cluster's
-# bytes)
-LARGE_SIDES = (2, 50, 56, 64, 96, 128, 256, 258, 512, 640, 896)
-LARGE_TIMED = ((256, 8, "float64"), (896, 1, "float32"), (640, 1, "float64"))
+# (jacobi_eig_cluster), 10h's [1, 640] bucket and 10i's [1, 768] bucket in
+# float64 (jacobi_eig_grid: past the cluster's bytes), each beside
+# jacobi_eig_large on the same inputs, and 10j's [1, 1280] bucket in
+# float64 (jacobi_eig_large: past the grid's bytes)
+LARGE_SIDES = (2, 50, 56, 64, 96, 128, 256, 258, 512, 640, 768, 896, 1280)
+LARGE_TIMED = ((256, 8, "float64"), (896, 1, "float32"), (640, 1, "float64"),
+               (768, 1, "float64"), (1280, 1, "float64"))
 # 10f: block_sdp(8, 256, 256) at REF_BLOCK8X256's plain settings in float64,
 # eps 1e-5, with the amortized backend
 BLOCK8X256_AMORTIZED = dict(accelerator=None, adaptive_rho=False, check_termination=25,
@@ -1711,9 +1743,47 @@ MAXCUT10K_AMORTIZED = dict(MAXCUT10K, accelerator=None, eigh_backend="amortized"
                            max_iter=100)
 # 10h: block_sdp(1, 640, 64) at REF_BLOCK8X256's plain settings in float64
 # with the amortized backend for a fixed 30 iterations: a side past the
-# cluster kernel's bytes in float64, so jacobi_eig_large's path
+# cluster kernel's bytes in float64, so jacobi_eig_grid's path
 BLOCK640 = dict(n_blocks=1, side=640, n=64, seed=0)
 BLOCK640_AMORTIZED = dict(BLOCK8X256_AMORTIZED, max_iter=30)
+# 10j: block_sdp(1, 1280, 64) at the same settings for a fixed 10
+# iterations: a side past the cooperative grid's bytes in float64 (and on
+# the bucket ladder, so the bucket's side), so jacobi_eig_large's path
+BLOCK1280 = dict(n_blocks=1, side=1280, n=64, seed=0)
+BLOCK1280_AMORTIZED = dict(BLOCK8X256_AMORTIZED, max_iter=10)
+# 10i: the max-cut SDP relaxation of a graph of G1's shape in the G set (800
+# nodes, 6% density: rudy -rnd_graph 800 6 8001, Helmberg & Rendl 2000;
+# problems.maxcut gives 19,267 edges with weights uniform in [0, 1)) in
+# float64 with the amortized backend at the default decomposition and
+# defaults otherwise, eps 1e-5; its PSD buckets [(3, 32), (30, 48), (5, 64),
+# (20, 96), (6, 128), (1, 768)], the [1, 768] one past the cluster's bytes.
+# It is Solved at 5,559 iterations on an H100, past the default max_iter
+# (5,000: Max_iter_reached there), so max_iter is 8,000; it runs beside
+# phases 7 and 11 on a shared card, ~87 s alone, and the time limit keeps
+# the script inside its own. Its profiled window: the iterations from
+# MAXCUT800_WINDOW[0], MAXCUT800_WINDOW[1] of them.
+MAXCUT800 = dict(n_nodes=800, density=0.06, seed=0)
+MAXCUT800_AMORTIZED = dict(eps_abs=1e-5, eps_rel=1e-5, dtype=np.float64,
+                           eigh_backend="amortized", max_iter=8000, time_limit=360.0)
+MAXCUT800_WINDOW = (100, 20)
+# cosmo_tpu on the CPU in float64 (JAX_PLATFORMS=cpu, jax_enable_x64) with
+# its default PSD backend (eigh; its amortized run did not end in hours on
+# an 8-core CPU): P, q, A, b, sets, L = problems.maxcut(800, 0.06, seed=0);
+# Model(Settings(eps_abs=1e-5, eps_rel=1e-5, dtype=np.float64,
+# max_iter=8000)).set(P, q, sp.csr_matrix(A), b, sets).optimize() ->
+# Solved, 5,154 iterations (1,643 s), its gap 1.70e-4, max |diag(Z) - 1|
+# 1.5e-6, lambda_min(diag(x) - L/4) -1.19e-4 max |L|
+REF_MAXCUT800 = 6267.747452744137
+# the limits, each just above its reading on an H100 (the Solved point at
+# eps 1e-5): the objective relative to REF_MAXCUT800 (read 1.27e-5: the
+# amortized backend's approximate warm projections take another path than
+# eigh's, Solved at 5,559 iterations, and eps 1e-5 fixes the objective only
+# to about the duality gap), the duality gap 1'x - <L/4, Z> relative to 1'x
+# (read 1.81e-4), max |diag(Z) - 1| for the dual variable Z = smat(y) of the
+# PSD constraint (read 3.0e-6), and the dual slack diag(x) - L/4 PSD to
+# -slack max |L| (read -1.26e-4 max |L|; the reference's own is -1.19e-4,
+# so eps 1e-5 does not give -1e-6)
+MAXCUT800_TOL = dict(obj=3e-5, gap=5e-4, diag=1e-5, slack=3e-4)
 
 
 def eig_bound_ms(B, k, dtype_name, sweeps):
@@ -2082,15 +2152,42 @@ def cluster_capacity(device):
     return out
 
 
+def grid_smem(device):
+    """The grid kernel's shared memory a CTA at each side of ``LARGE_SIDES``
+    and type that ``kernel_for`` sends it, from the library
+    (``jacobi_eig_grid_smem_*``) against ``jacobi_eig.grid_smem_bytes``, the
+    formula of its route."""
+    import torch
+    from cosmo_tpu_torch.ops import cuda_build
+    from cosmo_tpu_torch.ops import jacobi_eig as JE
+
+    lib = cuda_build.jacobi_library()
+    out = {}
+    for k in LARGE_SIDES:
+        for dtype, t in ((torch.float32, "f32"), (torch.float64, "f64")):
+            if JE.kernel_for(k, dtype) == "jacobi_eig_grid":
+                ctas = JE.grid_ctas(k)
+                out[f"{k} {t}"] = (ctas, getattr(lib, f"jacobi_eig_grid_smem_{t}")(k, ctas),
+                                   JE.grid_smem_bytes(k, ctas, dtype.itemsize))
+    log(f"[backends] 10e jacobi_eig_grid (CTAs, shared memory a CTA from the library, "
+        f"from grid_smem_bytes) by side and type: {out}")
+    if not out or any(lib_bytes != py for _, lib_bytes, py in out.values()):
+        raise AssertionError(f"10e: grid_smem_bytes disagrees with the kernel: {out}")
+    return out
+
+
 def phase_eig_large_kernel(device):
     """10e: the warm-started Jacobi kernels of side 2 and the sides above 48
     at every side of ``LARGE_SIDES`` at B in {1, 8} (B = 1 from 640), each
     case through the kernel ``kernel_for`` routes it to (jacobi_eig_cluster
-    where W fits a cluster, else jacobi_eig_large) and at ``LARGE_TIMED``
-    through both, every launch giving the plain version's bits; timed at
-    ``LARGE_TIMED`` (``eig_rows``; the plain version at 896 runs ~140,000
-    torch launches in 8 sweeps, ~7 s, so it is timed by one call, which is
-    also the timed case's reference). Returns (rows, the card's cluster
+    where W fits a cluster, jacobi_eig_grid where it fits the cooperative
+    grid, else jacobi_eig_large) and at ``LARGE_TIMED`` also through
+    jacobi_eig_large (W and V in global memory, a grid barrier a round), every
+    launch giving the plain version's bits; timed at ``LARGE_TIMED``
+    (``eig_rows``; the plain version at 896 runs ~140,000 torch launches in
+    8 sweeps, ~7 s, so it is timed by one call, which is also the timed
+    case's reference). The grid kernel's shared memory at each side it takes
+    is ``jacobi_eig.grid_smem_bytes``'s. Returns (rows, the card's cluster
     capacity)."""
     from cosmo_tpu_torch.ops import jacobi_eig as JE
 
@@ -2102,6 +2199,7 @@ def phase_eig_large_kernel(device):
         return [route, "jacobi_eig_large"] if both else [route]
 
     capacity = cluster_capacity(device)
+    grid_smem(device)
     shapes = [(k, B) for k in LARGE_SIDES for B in ((1,) if k >= 640 else (1, 8))]
     rows = eig_rows(device, "10e", kernels, shapes, set(LARGE_TIMED), exact=True,
                     plain_reps=0)
@@ -2387,11 +2485,51 @@ def phase_maxcut_amortized(device, smi):
     return out
 
 
+def capturing_projection(side, keep):
+    """A stand-in for ``jacobi_eig.psd_project_amortized`` that appends
+    (X.clone(), V_prev.clone()) of the calls at ``side`` to ``keep`` (the
+    last one kept) and counts launches in the original's counter. Returns
+    (stand-in, restore): ``restore()`` puts the original back."""
+    from cosmo_tpu_torch.ops import jacobi_eig as JE
+
+    original = JE.psd_project_amortized
+
+    def capturing(X, V_prev, *args, **kwargs):
+        if X.shape[-1] == side:
+            keep[:] = [(X.clone(), V_prev.clone())]
+        return original(X, V_prev, *args, **kwargs)
+
+    def restore():
+        JE.psd_project_amortized = original
+        original.launches = capturing.launches
+
+    capturing.launches = original.launches
+    JE.psd_project_amortized = capturing
+    return capturing, restore
+
+
+def last_projection_bits(captured, route):
+    """The kernel ``route`` on the last kept (X, V_prev) after the torch
+    rotation, against the plain version: max |P - P_ref|, max |V - V_ref|,
+    max |R - R_ref| (``eig_diffs``) and whether that projection was
+    stale."""
+    import torch
+    from cosmo_tpu_torch.ops import eigh as E
+    from cosmo_tpu_torch.ops import jacobi_eig as JE
+
+    X, V_prev = captured[0]
+    W, V0, stale = E.amortized_rotate(X, V_prev)
+    got = JE.LAUNCHERS[route](W, V0, stale, WARM_SWEEPS, SWEEPS)
+    torch.cuda.synchronize()
+    ref = JE.jacobi_eig_plain(W, V0, stale, WARM_SWEEPS, SWEEPS)
+    return eig_diffs(X, got, ref) + (bool(stale),)
+
+
 def phase_large_side_amortized(device, smi):
     """10h: ``block_sdp(1, 640, 64)`` in float64 with eigh_backend="amortized"
     for a fixed 30 iterations (``BLOCK640_AMORTIZED``): its [1, 640] bucket
     is past the cluster kernel's bytes in float64, so ``kernel_for`` sends
-    it to jacobi_eig_large, which takes every projection and no other
+    it to jacobi_eig_grid, which takes every projection and no other
     Jacobi kernel runs; x, y and s finite; the last projection's (X,
     V_prev), kept by a wrapper around ``jacobi_eig.psd_project_amortized``,
     held kernel against plain version to its bits."""
@@ -2399,64 +2537,206 @@ def phase_large_side_amortized(device, smi):
     import torch
     import cosmo_tpu_torch as pt
     from cosmo_tpu_torch import problems
-    from cosmo_tpu_torch.ops import eigh as E
     from cosmo_tpu_torch.ops import jacobi_eig as JE
 
+    route = JE.kernel_for(640, torch.float64)
     P, q, A, b, sets = problems.block_sdp(**BLOCK640)
     model = pt.Model(pt.Settings(**BLOCK640_AMORTIZED), device=device).set(
         P, q, sp.csr_matrix(A), b, sets)
-    original, captured = JE.psd_project_amortized, []
-
-    def capturing(X, V_prev, *args, **kwargs):
-        captured[:] = [(X.clone(), V_prev.clone())]
-        return original(X, V_prev, *args, **kwargs)
-
-    capturing.launches = original.launches
-    JE.psd_project_amortized = capturing
+    captured = []
+    _, restore = capturing_projection(640, captured)
     try:
         res, counts = counted_optimize(model)
     finally:
-        JE.psd_project_amortized = original
-        original.launches = capturing.launches
+        restore()
     info = model.last_solve
     n_full = sum(JE.full_sweep_counts(device).values())
     finite = all(bool(np.isfinite(getattr(res, a)).all()) for a in ("x", "y", "s"))
-    X, V_prev = captured[0]
-    W, V0, stale = E.amortized_rotate(X, V_prev)
-    got = JE.jacobi_eig_large_cuda(W, V0, stale, WARM_SWEEPS, SWEEPS)
-    torch.cuda.synchronize()
-    dP, dV, dR = eig_diffs(X, got, JE.jacobi_eig_plain(W, V0, stale, WARM_SWEEPS, SWEEPS))
-    launches = counts["jacobi_eig_large"]
+    dP, dV, dR, stale = last_projection_bits(captured, route)
+    launches = counts[route]
     buckets = [(b.batch, b.side) for b in model._dev_cache["cones"].psd_buckets]
     out = dict(status=res.status, iter=res.iter, solve_s=info["iter_time"],
-               iter_per_s=res.iter / info["iter_time"], launches=launches,
+               iter_per_s=res.iter / info["iter_time"], route=route, launches=launches,
                full_sweep_launches=n_full, projections=info["projections"],
                buckets=buckets, finite=finite, counts=counts, max_abs_err_P=dP,
-               max_abs_err_V=dV, max_abs_err_rec=dR, last_stale=bool(stale))
+               max_abs_err_V=dV, max_abs_err_rec=dR, last_stale=stale)
     log(f"[backends] 10h block_sdp(1,640,64) float64 amortized: {res.status}, {res.iter} "
         f"iters, solve {info['iter_time']:.3f} s, {out['iter_per_s']:.2f} iter/s, PSD "
-        f"buckets {buckets}, jacobi_eig_large launches {launches} ({n_full} full sweeps) / "
+        f"buckets {buckets}, {route} launches {launches} ({n_full} full sweeps) / "
         f"projections {info['projections']}, kernels {counts}, x, y, s finite {finite}; "
         f"the last projection ({'stale' if stale else 'warm'}) kernel against plain err P "
         f"{dP:.3e} V {dV:.3e} V diag(V'XV) V' {dR:.3e} (limit 0) [{smi}]")
-    if (buckets != [(1, 640)] or JE.kernel_for(640, torch.float64) != "jacobi_eig_large"
+    if (buckets != [(1, 640)] or route != "jacobi_eig_grid"
             or not launches == info["projections"] > 0 or not finite
-            or any(n for name, n in counts.items() if name != "jacobi_eig_large")
+            or any(n for name, n in counts.items() if name != route)
             or not dP == dV == dR == 0):
         raise AssertionError(f"10h left its path: {out}")
     return out
 
 
+def phase_past_grid_amortized(device, smi):
+    """10j: ``block_sdp(1, 1280, 64)`` in float64 with eigh_backend="amortized"
+    for a fixed 10 iterations (``BLOCK1280_AMORTIZED``): its [1, 1280]
+    bucket is past the cooperative grid's bytes in float64, so
+    ``kernel_for`` sends it to jacobi_eig_large (W and V in global memory),
+    which takes every projection and no other Jacobi kernel runs; x, y and s
+    finite; the last projection's (X, V_prev) held kernel against plain
+    version to its bits."""
+    import scipy.sparse as sp
+    import torch
+    import cosmo_tpu_torch as pt
+    from cosmo_tpu_torch import problems
+    from cosmo_tpu_torch.ops import jacobi_eig as JE
+
+    k = BLOCK1280["side"]
+    route = JE.kernel_for(k, torch.float64)
+    P, q, A, b, sets = problems.block_sdp(**BLOCK1280)
+    model = pt.Model(pt.Settings(**BLOCK1280_AMORTIZED), device=device).set(
+        P, q, sp.csr_matrix(A), b, sets)
+    del A
+    captured = []
+    _, restore = capturing_projection(k, captured)
+    try:
+        res, counts = counted_optimize(model)
+    finally:
+        restore()
+    info = model.last_solve
+    n_full = sum(JE.full_sweep_counts(device).values())
+    finite = all(bool(np.isfinite(getattr(res, a)).all()) for a in ("x", "y", "s"))
+    dP, dV, dR, stale = last_projection_bits(captured, route)
+    buckets = [(b.batch, b.side) for b in model._dev_cache["cones"].psd_buckets]
+    out = dict(status=res.status, iter=res.iter, solve_s=info["iter_time"],
+               iter_per_s=res.iter / info["iter_time"], route=route,
+               launches=counts[route], full_sweep_launches=n_full,
+               projections=info["projections"], buckets=buckets, finite=finite,
+               counts=counts, max_abs_err_P=dP, max_abs_err_V=dV, max_abs_err_rec=dR,
+               last_stale=stale)
+    log(f"[backends] 10j block_sdp(1,{k},64) float64 amortized: {res.status}, {res.iter} "
+        f"iters, solve {info['iter_time']:.3f} s, {out['iter_per_s']:.2f} iter/s, PSD "
+        f"buckets {buckets}, {route} launches {counts[route]} ({n_full} full sweeps) / "
+        f"projections {info['projections']}, kernels {counts}, x, y, s finite {finite}; "
+        f"the last projection ({'stale' if stale else 'warm'}) kernel against plain err P "
+        f"{dP:.3e} V {dV:.3e} V diag(V'XV) V' {dR:.3e} (limit 0) [{smi}]")
+    if (buckets != [(1, k)] or route != "jacobi_eig_large"
+            or not counts[route] == info["projections"] > 0 or not finite
+            or any(n for name, n in counts.items() if name != route)
+            or not dP == dV == dR == 0):
+        raise AssertionError(f"10j left its path: {out}")
+    return out
+
+
+def phase_maxcut800_amortized(device, smi):
+    """10i: ``problems.maxcut(800, 0.06, seed=0)`` (``MAXCUT800``, G1's shape)
+    in float64 with eigh_backend="amortized" at the default decomposition,
+    eps 1e-5 (``MAXCUT800_AMORTIZED``): Solved, its objective within
+    ``MAXCUT800_TOL``'s obj relative of ``REF_MAXCUT800`` and its optimality
+    certificate within the others: the dual slack diag(x) - L/4 PSD
+    to -slack max |L| (``slack_lambda_min``), the dual variable Z = smat(y)
+    of the PSD constraint with diag(Z) = 1 to diag, and the duality gap
+    1'x - <L/4, Z> (<L/4, Z> reads Z only on L's pattern, where the
+    decomposition determines it) relative to 1'x within gap; its PSD buckets include [1, 768], which
+    ``kernel_for`` sends to jacobi_eig_grid, launched once a projection on
+    it and on no other side; every bucket's kernel and launches logged;
+    the last [1, 768] projection's (X, V_prev) held kernel against plain
+    version to its bits. It prints iter/s, the solve's seconds, the
+    bucket's full-sweep share (its device tally) and, from one profiled
+    window of ``MAXCUT800_WINDOW`` iterations (``torch.profiler``), the
+    grid kernel's device share of the window's host seconds. It runs in a
+    process of its own beside phases 7 and 11 (``Beside``): its rates and
+    shares are those of a shared card."""
+    import scipy.sparse as sp
+    import torch
+    import cosmo_tpu_torch as pt
+    from cosmo_tpu_torch import problems
+    from cosmo_tpu_torch.ops import jacobi_eig as JE
+    from cosmo_tpu_torch.profile_slice import IterationWindows
+
+    P, q, A, b, sets, L = problems.maxcut(**MAXCUT800)
+    model = pt.Model(pt.Settings(**MAXCUT800_AMORTIZED), device=device).set(
+        P, q, sp.csr_matrix(A), b, sets)
+    del A
+    route = JE.kernel_for(768, torch.float64)
+    captured = []
+    _, restore = capturing_projection(768, captured)
+    windows = IterationWindows(plain_at=MAXCUT800_WINDOW[0], width=MAXCUT800_WINDOW[1])
+    try:
+        res, counts = counted_optimize(model, on_iter=windows)
+        launches = dict(JE.psd_project_amortized.launches)
+    finally:
+        restore()
+    info = model.last_solve
+    full = JE.full_sweep_counts(device)
+    window = next(iter(windows.close(res.iter, top=40).values()), {})
+    kernel_s = sum(r["device_ms"] for r in window.get("top", [])
+                   if "jacobi_eig_grid" in r["name"]) / 1e3
+    share = kernel_s / window["wall_s"] if window else float("nan")
+    lam = slack_lambda_min(res.x, sp.csr_matrix(L), device)
+    scale = float(np.abs(L).max())
+    Z = problems.smat(np.asarray(res.y, dtype=np.float64))
+    diag_err = float(np.abs(np.diagonal(Z) - 1.0).max())
+    dual_obj = float((L * Z).sum() / 4.0)
+    gap = abs(res.obj_val - dual_obj) / abs(res.obj_val)
+    err = abs(res.obj_val - REF_MAXCUT800) / abs(REF_MAXCUT800)
+    tol = MAXCUT800_TOL
+    key = (route, 768, "float64")
+    buckets = [(b.batch, b.side) for b in model._dev_cache["cones"].psd_buckets]
+    dP, dV, dR, stale = last_projection_bits(captured, route)
+    out = dict(status=res.status, iter=int(res.iter), obj=res.obj_val, obj_rel_err=err,
+               dual_obj=dual_obj,
+               rel_gap=gap, diag_err=diag_err, lambda_min=lam, max_abs_L=scale,
+               setup_s=res.times.setup_time,
+               solve_s=info["iter_time"], iter_per_s=res.iter / info["iter_time"],
+               route=route, launches=int(launches.get(key, 0)),
+               full_sweep_launches=int(full.get(key, 0)),
+               full_sweep_share=full.get(key, 0) / max(launches.get(key, 0), 1),
+               projections=info["projections"], buckets=buckets,
+               bucket_launches={f"{name} {k} {t}": n for (name, k, t), n in launches.items()},
+               counts=counts, window_iters=window.get("iters"),
+               window_wall_s=window.get("wall_s"), window_kernel_s=kernel_s,
+               kernel_share=share, max_abs_err_P=dP, max_abs_err_V=dV, max_abs_err_rec=dR,
+               last_stale=stale)
+    log(f"[maxcut800] 10i maxcut(800, 0.06) float64 amortized: {res.status}, {res.iter} "
+        f"iters, obj {res.obj_val:.13f} (rel err {err:.3e} of {REF_MAXCUT800}, limit "
+        f"{tol['obj']:.0e}), dual obj <L/4, Z> {dual_obj:.13f} (relative gap "
+        f"{gap:.3e}), max |diag(Z) - 1| {diag_err:.3e}, lambda_min(diag(x) - L/4) "
+        f"{lam:.3e} (limits {tol['gap']:.0e}, {tol['diag']:.0e}, "
+        f"{-tol['slack'] * scale:.3e}), setup "
+        f"{res.times.setup_time:.3f} s, solve {info['iter_time']:.3f} s, "
+        f"{out['iter_per_s']:.2f} iter/s on the shared card; PSD buckets {buckets}; launches by (kernel, "
+        f"side, type) {out['bucket_launches']} / projections {info['projections']}; "
+        f"{route} full sweeps {out['full_sweep_launches']} of {out['launches']} "
+        f"({out['full_sweep_share']:.3f}); profiled window of {window.get('iters')} "
+        f"iterations: {window.get('wall_s', float('nan')):.4f} s, {route} device "
+        f"{kernel_s:.4f} s ({share:.3f} of it), device busy share "
+        f"{window.get('busy_share', float('nan')):.3f}; the last [1, 768] projection "
+        f"({'stale' if stale else 'warm'}) kernel against plain err P {dP:.3e} V "
+        f"{dV:.3e} V diag(V'XV) V' {dR:.3e} (limit 0) [{smi}]")
+    if (res.status != "Solved" or not err <= tol["obj"] or not gap <= tol["gap"]
+            or not diag_err <= tol["diag"] or not lam >= -tol["slack"] * scale):
+        raise AssertionError(f"10i: {res.status}, obj {res.obj_val} (rel err {err}), "
+                             f"gap {gap}, diag(Z) "
+                             f"{diag_err}, lambda_min {lam}")
+    if ((1, 768) not in buckets or route != "jacobi_eig_grid"
+            or not launches.get(key, 0) == info["projections"] > 0
+            or any(n for (name, k, _), n in launches.items() if name == route and k != 768)
+            or any(n != info["projections"] for n in launches.values())
+            or not dP == dV == dR == 0 or not window or not kernel_s > 0):
+        raise AssertionError(f"10i left its path: {out}")
+    return out
+
+
 def phase_backends(device, smi):
-    """10b, 10e, 10f and 10h (10a runs after phase 3; 10c, 10d and 10g
-    beside phases 7 and 11)."""
+    """10b, 10e, 10f, 10h and 10j (10a runs after phase 3, 10i beside phases
+    7 and 11; 10c, 10d and 10g beside those)."""
     out = {}
     for name, run in (("amortized", lambda: phase_amortized(device, smi)),
                       ("eig_large_kernel", lambda: phase_eig_large_kernel(device)),
                       ("block8x256_amortized",
                        lambda: phase_block8x256_amortized(device, smi)),
                       ("large_side_amortized",
-                       lambda: phase_large_side_amortized(device, smi))):
+                       lambda: phase_large_side_amortized(device, smi)),
+                      ("past_grid_amortized",
+                       lambda: phase_past_grid_amortized(device, smi))):
         t = time.perf_counter()
         out[name] = run()
         out[f"{name}_s"] = time.perf_counter() - t
@@ -2711,11 +2991,12 @@ def main(argv=None):
     plugins = timed("plugins", lambda: phase_plugins(device, smi))
     decomposed = timed("decomposed", lambda: phase_decomposed(device, smi))
     default = timed("default", lambda: phase_default(device, smi))
-    # phases 7 and 11 in processes of their own, beside 8, 10c, 10d and 10g
-    # here (``Beside``)
+    # phases 7, 10i and 11 in processes of their own, beside 8, 10c, 10d and
+    # 10g here (``Beside``)
     t = time.perf_counter()
     beside = [Beside("maxcut", phase_maxcut, smi)]
     try:
+        beside.append(Beside("maxcut800", phase_maxcut800_amortized, smi))
         beside.append(Beside("mesh", phase_mesh, smi, decomposed["jacobi_proj_cold"],
                              decomposed.pop("x")))
         cg = timed("cg", lambda: phase_cg(device, smi, args.seed))
@@ -2724,16 +3005,19 @@ def main(argv=None):
             ("examples", lambda: phase_examples(device)),
             ("maxcut_amortized", lambda: phase_maxcut_amortized(device, smi)))}
         maxcut, seconds["maxcut"] = beside[0].result(MAXCUT10K["time_limit"] + 300)
-        mesh, seconds["mesh"] = beside[1].result(4 * MESH_TIMEOUT_S)
+        maxcut800, seconds["maxcut800"] = beside[1].result(
+            MAXCUT800_AMORTIZED["time_limit"] + 300)
+        mesh, seconds["mesh"] = beside[2].result(4 * MESH_TIMEOUT_S)
     finally:
         for proc in beside:
             proc.stop()
     seconds["shared"] = time.perf_counter() - t
-    log(f"[time] maxcut {seconds['maxcut']:.1f} s and mesh {seconds['mesh']:.1f} s in "
-        f"their processes; the phases on the shared card {seconds['shared']:.1f} s")
+    log(f"[time] maxcut {seconds['maxcut']:.1f} s, maxcut800 {seconds['maxcut800']:.1f} s "
+        f"and mesh {seconds['mesh']:.1f} s in their processes; the phases on the shared "
+        f"card {seconds['shared']:.1f} s")
     cones = timed("cones", lambda: phase_cones(device, smi, args.seed))
     backends = timed("backends", lambda: phase_backends(device, smi))
-    backends.update(shared, eig_kernel=eig_kernel)
+    backends.update(shared, eig_kernel=eig_kernel, maxcut800_amortized=maxcut800)
     seconds["total"] = time.perf_counter() - t0
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
 
@@ -2821,11 +3105,13 @@ def main(argv=None):
             library_ms=row["library_ms"]))
     # the large-side kernels at their paths' buckets: jacobi_eig_cluster at
     # 10f's [8, 256] float64 bucket and at 10g's [1, 896] float32 colpad
-    # bucket, jacobi_eig_large at 10h's [1, 640] float64 bucket (past the
-    # cluster's bytes): one row at the warm sweeps with the path's warm
-    # launches on the bucket, one at the full sweeps with its full-sweep
-    # launches (the bucket's device tally)
+    # bucket, jacobi_eig_grid at 10h's [1, 640] and 10i's [1, 768] float64
+    # buckets (past the cluster's bytes), jacobi_eig_large at 10j's [1, 1280]
+    # float64 bucket (past the grid's bytes): one row at the warm sweeps with
+    # the path's warm launches on the bucket, one at the full sweeps with its
+    # full-sweep launches (the bucket's device tally)
     block, wide = backends["block8x256_amortized"], backends["large_side_amortized"]
+    g1, past = backends["maxcut800_amortized"], backends["past_grid_amortized"]
     large_rows, _ = backends["eig_large_kernel"]
     for name, k, B, dtype_name, sweeps, launches, path in (
             ("jacobi_eig_cluster", 256, 8, "float64", WARM_SWEEPS,
@@ -2836,10 +3122,18 @@ def main(argv=None):
              mc["launches_896"] - mc["full_sweep_launches_896"], mc_path),
             ("jacobi_eig_cluster", 896, 1, "float32", SWEEPS, mc["full_sweep_launches_896"],
              mc_path),
-            ("jacobi_eig_large", 640, 1, "float64", WARM_SWEEPS,
+            ("jacobi_eig_grid", 640, 1, "float64", WARM_SWEEPS,
              wide["launches"] - wide["full_sweep_launches"], "block_sdp_1x640_amortized"),
-            ("jacobi_eig_large", 640, 1, "float64", SWEEPS, wide["full_sweep_launches"],
-             "block_sdp_1x640_amortized")):
+            ("jacobi_eig_grid", 640, 1, "float64", SWEEPS, wide["full_sweep_launches"],
+             "block_sdp_1x640_amortized"),
+            ("jacobi_eig_grid", 768, 1, "float64", WARM_SWEEPS,
+             g1["launches"] - g1["full_sweep_launches"], "maxcut800_amortized"),
+            ("jacobi_eig_grid", 768, 1, "float64", SWEEPS, g1["full_sweep_launches"],
+             "maxcut800_amortized"),
+            ("jacobi_eig_large", 1280, 1, "float64", WARM_SWEEPS,
+             past["launches"] - past["full_sweep_launches"], "block_sdp_1x1280_amortized"),
+            ("jacobi_eig_large", 1280, 1, "float64", SWEEPS, past["full_sweep_launches"],
+             "block_sdp_1x1280_amortized")):
         row = next(r for r in large_rows if r["kernel"] == name and r["dtype"] == dtype_name
                    and r["k"] == k and r["B"] == B and r["sweeps"] == sweeps)
         kernels.append(dict(

@@ -57,19 +57,22 @@
 //     with numpy.uint16): the uint8 table of the small bodies ends at k = 256.
 //
 // Which sides it keeps. jacobi_eig_cluster.cu holds W in the shared memory
-// of one thread-block cluster a matrix and is faster (2.8 times at [8, 256]
-// f64, 1.6 times at [1, 896] f32 on an H100: PERF.md §6);
-// ops/jacobi_eig.kernel_for sends it every side whose W fits a cluster of
-// 16 CTAs of 227 KB (up to 896 in f32, 608 in f64). This kernel keeps the even sides
-// past that, up to its pair table's 65,536: there W outgrows the largest
-// cluster the card schedules, but a bucket's W and V still sit in L2.
+// of one thread-block cluster a matrix (f32 to 896, f64 to 608), and
+// jacobi_eig_grid.cu in the shared memory of one cooperative grid of 128
+// CTAs, with V's rows (f32 to 1,792, f64 to 1,232); both are faster
+// (PERF.md §6: at [1, 640] f64 2 sweeps the grid kernel takes 0.6 of this
+// kernel's time on an H100). ops/jacobi_eig.kernel_for sends this kernel
+// the even sides past both, up to its pair table's 65,536: there W outgrows
+// the grid's shared memory but still fits L2 up to k ~ 1,800 in f64.
 //
 // What bounds it. The function's work (chip_smoke.eig_bound_ms) bounds it by
 // operations, ~0.15 ms for [1, 640] f64 at 2 sweeps. This kernel is a chain
 // of sweeps x (k - 1) rounds (1,278 at [1, 640] warm), each a pass over W
 // and V through L2 with each angle recomputed by the k/2 threads that use
-// it, then a grid barrier (~8-9 us a round): the chain, not the work, sets
-// its time. Not used: wgmma, TMA, several tiles a thread.
+// it, then a grid barrier (~8 us a round at [1, 640]): the chain, not the
+// work, sets its time. Not used: wgmma, TMA, several tiles a thread. It is
+// kept as it is for the sides past the grid's bytes, which no cell runs at
+// a size where it would pay to redesign it (10j drives it at [1, 1280]).
 //
 // C interface (in the library of jacobi_proj.cu, loaded with ctypes):
 // jacobi_eig_large_f32 / jacobi_eig_large_f64 launch on the given stream and

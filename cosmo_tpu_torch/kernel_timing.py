@@ -1,7 +1,7 @@
 """Timers of the Jacobi kernels, and this checkout's kernels against
 another checkout's on one card.
 
-    python -m cosmo_tpu_torch.kernel_timing --other DIR
+    python -m cosmo_tpu_torch.kernel_timing --other DIR [--large]
 
 DIR is the root of another checkout of the repository, for instance the
 parent commit unpacked with ``git archive``. Each tree builds its own
@@ -15,7 +15,14 @@ full sweeps): a tree whose kernel takes (W, V0, stale) runs it after the
 torch rotation (``eigh.amortized_rotate``), the path before the kernel
 took the whole projection; the line gives the largest difference of the
 two trees' P and V, and this tree's kernel's ``device_ms`` at 0 sweeps
-(the rotation, the barrier and the reconstruction alone). Needs CUDA.
+(the rotation, the barrier and the reconstruction alone). With
+``--large``, only the large sides of :data:`LARGE_SHAPES` in float64, warm
+and stale (:func:`eig_case` after the torch rotation): the kernel this
+tree's ``kernel_for`` names against the other tree's ``jacobi_eig_large``
+(its C entry of W, V0 and stale), each with its torch reconstruction, in
+the same turns, and ``torch.linalg.eigh`` + reconstruction (V = V0 Q, P =
+V max(w, 0) V') timed beside them; each line says whether the two trees'
+P and V are the same bits. Needs CUDA.
 """
 from __future__ import annotations
 
@@ -37,7 +44,17 @@ from .ops import jacobi_proj_rr as R
 
 # (k, B): the main path's side at three stack sizes, and other sides
 SHAPES = ((16, 512), (16, 2498), (16, 8540), (8, 2498), (32, 2498), (48, 2498))
+# (k, B) of --large: 10h's and 10i's buckets
+LARGE_SHAPES = ((640, 1), (768, 1))
 SWEEPS = 8
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
 def launch_ms(fn, reps):
@@ -155,22 +172,84 @@ def _launch_eig(lib, X, V0, pairs, sync, warm=2, full=SWEEPS):
     return torch.cat((P, V))
 
 
+def _launch_large(lib, W, V0, stale, pairs, warm=2, full=SWEEPS):
+    """A tree's ``jacobi_eig_large`` C entry (W and V in global
+    memory, a grid barrier a round) on (W, V0, stale), then the torch
+    reconstruction: (P, V). ``pairs`` is its uint16 pair table on the
+    card."""
+    B, k, _ = W.shape
+    w, V = W.new_empty((B, k)), torch.empty_like(W)
+    scratch = W.new_empty((2, B, k, k))
+    fn = lib.jacobi_eig_large_f32 if W.dtype == torch.float32 else lib.jacobi_eig_large_f64
+    err = fn(W.data_ptr(), V0.data_ptr(), w.data_ptr(), V.data_ptr(), scratch.data_ptr(),
+             pairs.data_ptr(), stale.data_ptr(), warm, full, None, B, k,
+             torch.cuda.current_stream(W.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"jacobi_eig_large kernel launch failed: CUDA error {err}")
+    return E.sym_reconstruct(w, V), V
+
+
+def large_main(other, smi):
+    """--large: this tree's kernel at each side of LARGE_SHAPES (its
+    ``kernel_for``) against the other tree's jacobi_eig_large, and eigh."""
+    from .ops import jacobi_eig as JE
+
+    device = torch.device("cuda")
+    lib_other = _load(other, "jacobi_eig")
+    print(smi)
+    print("each case: launch_ms other (jacobi_eig_large), this (kernel_for's), this, other | "
+          "device_ms the same | eigh + reconstruction launch_ms, device_ms | the two "
+          "trees' P and V bit-identical")
+    for k, B in LARGE_SHAPES:
+        dtype = torch.float64
+        route = JE.kernel_for(k, dtype)
+        pairs = torch.as_tensor(J.pair_schedule(k, np.uint16).view(np.int16), device=device)
+        for warm in (True, False):
+            X, _, V_prev = eig_case(B, k, warm, seed=k * B + warm)
+            X = torch.as_tensor(X, dtype=dtype, device=device)
+            V_prev = torch.as_tensor(np.ascontiguousarray(V_prev), dtype=dtype, device=device)
+            W, V0, stale = E.amortized_rotate(X, V_prev)
+            W, V0 = W.contiguous(), V0.contiguous()
+            calls = {"other": lambda: _launch_large(lib_other, W, V0, stale, pairs),
+                     "this": lambda: JE.LAUNCHERS[route](W, V0, stale, 2, SWEEPS)}
+            launch, dev, outs = [], [], {}
+            for tree in ("other", "this", "this", "other"):
+                launch.append(launch_ms(calls[tree], 5))
+                dev.append(device_ms(calls[tree], 3))
+                outs[tree] = calls[tree]()
+            same = all(torch.equal(a, b) for a, b in zip(outs["this"], outs["other"]))
+
+            def library():
+                w, Q = torch.linalg.eigh(W)
+                V = V0 @ Q
+                return V @ (torch.clamp(w, min=0.0)[:, :, None] * V.transpose(1, 2)), V
+
+            print(f"k={k} B={B} float64 {'warm' if warm else 'stale'} ({route}) | "
+                  + " ".join(f"{t:.4f}" for t in launch) + " | "
+                  + " ".join(f"{t:.4f}" for t in dev)
+                  + f" | eigh {launch_ms(library, 5):.4f} {device_ms(library, 3):.4f}"
+                  f" | same bits {same}", flush=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", required=True, help="root of the other checkout")
+    parser.add_argument("--large", action="store_true",
+                        help="only the large sides (LARGE_SHAPES) against the other "
+                             "tree's jacobi_eig_large")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timing needs a CUDA device")
     other = _other_cuda_build(Path(args.other).resolve())
+    smi = card()
+    if args.large:
+        return large_main(other, smi)
     kernels = {}
     for name, tables in (("jacobi_proj", J._schedule_on), ("jacobi_proj_rr", R._table_on),
                          ("jacobi_eig", J._schedule_on)):
         for tree, builder in (("other", other), ("this", cuda_build)):
             kernels[tree, name] = (builder, _load(builder, name), tables)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(card)
+    print(smi)
     print("each kernel: launch_ms other, this, this, other | device_ms the same | "
           "outputs of the two trees bit-identical (jacobi_eig: their largest difference)")
     device = torch.device("cuda")

@@ -34,9 +34,11 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 # the Jacobi kernels' library: the round-robin and the slot-rotation
 # schedules' C entries, the amortized projection's (one launch), the
 # shared-memory body the two projections use, and the warm-started
-# eigendecompositions of the large sides (a cluster a matrix; the grid)
+# eigendecompositions of the large sides (a cluster a matrix; the grid's
+# shared memory; global memory)
 JACOBI_SOURCES = ("jacobi_proj.cu", "jacobi_proj_rr.cu", "jacobi_eig.cu",
-                  "jacobi_smem.cu", "jacobi_eig_cluster.cu", "jacobi_eig_large.cu")
+                  "jacobi_smem.cu", "jacobi_eig_cluster.cu", "jacobi_eig_grid.cu",
+                  "jacobi_eig_large.cu")
 JACOBI_ENTRIES = ("jacobi_proj", "jacobi_proj_rr")
 # the exp/pow cone projection's library: one source, one entry a family
 EXP_POW_SOURCES = ("exp_pow_proj.cu",)
@@ -68,31 +70,32 @@ def _sources(source: Path) -> list[Path]:
     return seen
 
 
-def library_path(sources: Sequence[Path], name: str) -> Path:
-    """Where the library ``name`` built from ``sources`` lives: its name
-    carries a hash of the sources, of the headers they include and of the
-    flags."""
-    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+def library_path(sources: Sequence[Path], name: str, flags: Sequence[str] = ()) -> Path:
+    """Where the library ``name`` built from ``sources`` (with the extra
+    nvcc ``flags``) lives: its name carries a hash of the sources, of the
+    headers they include and of the flags."""
+    digest = hashlib.sha1(" ".join((*NVCC_FLAGS, *flags)).encode())
     for source in sources:
         for path in _sources(source):
             digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
-def build(sources: Sequence[Path], name: str) -> Path:
-    """Compile ``sources`` for sm_90a into the one library ``name`` unless
-    it is built: one ``nvcc -c`` per source, all started together, then
-    one link. Raises if nvcc fails. The compiler's ``-Xptxas -v`` reports
-    (registers, shared memory, spills) are kept beside the library with
-    the suffix ``.log``."""
-    so = library_path(sources, name)
+def build(sources: Sequence[Path], name: str, flags: Sequence[str] = ()) -> Path:
+    """Compile ``sources`` for sm_90a (with the extra nvcc ``flags``) into
+    the one library ``name`` unless it is built: one ``nvcc -c`` per
+    source, all started together, then one link. Raises if nvcc fails.
+    The compiler's ``-Xptxas -v`` reports (registers, shared memory,
+    spills) are kept beside the library with the suffix ``.log``."""
+    so = library_path(sources, name, flags)
     if so.is_file():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = os.getpid()
     objs = [so.with_name(f"{so.stem}.{src.stem}.{tag}.o") for src in sources]
     try:
-        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, *flags, "-c", "-o", str(obj),
+                                   str(src)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                   text=True)
                  for src, obj in zip(sources, objs)]
@@ -137,23 +140,54 @@ def jacobi_library() -> ctypes.CDLL:
     const uint8_t* stale, int warm, int full, int* n_full, int B, int k, int
     cluster, void* stream)``, and ``jacobi_eig_cluster_max_active_<f32|f64>(int k, int
     cluster, int* out)`` the card's cudaOccupancyMaxActiveClusters for that
-    launch. Each returns ``cudaGetLastError()`` (or the launch's error)."""
-    lib = ctypes.CDLL(str(build_jacobi()))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    launch; ``jacobi_eig_grid_f32`` and ``jacobi_eig_grid_f64`` are ``int
+    f(const T* w, const T* v0, T* d, T* v, T* scratch, int* flags, const
+    uint8_t* stale, int warm, int full, int* n_full, int B, int k, int ctas,
+    void* stream)``, and ``long long jacobi_eig_grid_scratch_<f32|f64>(int
+    k, int ctas, long long log_rounds)`` the entries of T its scratch
+    holds, ``long long jacobi_eig_grid_smem_<f32|f64>(int k, int ctas)`` a
+    CTA's shared memory, and ``int jacobi_eig_grid_flag_ints(int ctas)`` the
+    int32 round flags it takes (zero at launch). Each launch entry returns
+    ``cudaGetLastError()`` (or the launch's error)."""
+    return _declare_jacobi(ctypes.CDLL(str(build_jacobi())))
+
+
+def _declare_jacobi(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the argument and result types of the Jacobi kernels' C
+    entries (:func:`jacobi_library`) that ``lib`` has, and of the
+    profiled builds' ``jacobi_eig_cluster_profile`` and
+    ``jacobi_eig_grid_profile(long long* out)``."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    types = {"jacobi_eig_grid_flag_ints": ([i], i), "jacobi_eig_cluster_profile": ([p], i),
+             "jacobi_eig_grid_profile": ([p], i)}
     for t in ("f32", "f64"):
         for prefix in JACOBI_ENTRIES:
-            getattr(lib, f"{prefix}_{t}").argtypes = [p, p, p, i, i, i, p]
-        getattr(lib, f"jacobi_eig_{t}").argtypes = [p, p, p, p, p, p, p, i, i, p, i, i, p]
-        getattr(lib, f"jacobi_eig_wave_{t}").argtypes = [i, p]
-        getattr(lib, f"jacobi_eig_large_{t}").argtypes = [p, p, p, p, p, p, p, i, i, p,
-                                                          i, i, p]
-        getattr(lib, f"jacobi_eig_cluster_{t}").argtypes = [p, p, p, p, p, p, p, i, i,
-                                                            p, i, i, i, p]
-        getattr(lib, f"jacobi_eig_cluster_max_active_{t}").argtypes = [i, i, p]
-        for prefix in (*JACOBI_ENTRIES, "jacobi_eig", "jacobi_eig_wave", "jacobi_eig_large",
-                       "jacobi_eig_cluster", "jacobi_eig_cluster_max_active"):
-            getattr(lib, f"{prefix}_{t}").restype = i
+            types[f"{prefix}_{t}"] = ([p, p, p, i, i, i, p], i)
+        types.update({
+            f"jacobi_eig_{t}": ([p, p, p, p, p, p, p, i, i, p, i, i, p], i),
+            f"jacobi_eig_wave_{t}": ([i, p], i),
+            f"jacobi_eig_large_{t}": ([p, p, p, p, p, p, p, i, i, p, i, i, p], i),
+            f"jacobi_eig_cluster_{t}": ([p, p, p, p, p, p, p, i, i, p, i, i, i, p], i),
+            f"jacobi_eig_cluster_max_active_{t}": ([i, i, p], i),
+            f"jacobi_eig_grid_{t}": ([p, p, p, p, p, p, p, i, i, p, i, i, i, p], i),
+            f"jacobi_eig_grid_scratch_{t}": ([i, i, ll], ll),
+            f"jacobi_eig_grid_smem_{t}": ([i, i], ll)})
+    for name, (args, result) in types.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = result
     return lib
+
+
+@lru_cache(maxsize=None)
+def variant_library(source: str, define: str) -> ctypes.CDLL:
+    """Build and load a variant of one source of the Jacobi kernels'
+    library: ``csrc/<source>`` alone, compiled with the extra nvcc flag
+    ``define`` (a ``-D`` the source reads: a profiled build, a test's
+    short wait) into a library of its own in ``_build/``, its entries
+    declared as :func:`jacobi_library` declares them."""
+    so = build([CSRC / source], f"{Path(source).stem}_variant", (define,))
+    return _declare_jacobi(ctypes.CDLL(str(so)))
 
 
 def launch_jacobi(lib: ctypes.CDLL, prefix: str, X: torch.Tensor,

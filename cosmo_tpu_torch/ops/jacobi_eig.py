@@ -19,7 +19,13 @@ takes a side (:func:`kernel_for`):
   distributed shared memory, one exchange of bulk copies a round, V
   replayed from a log of the angles), then P = V max(w, 0) V' as a batched
   product (``eigh.sym_reconstruct``);
-* the other even k above 48, up to 65,536 (:func:`large_kernel_takes`):
+* the other even k above 48 whose W fits the shared memory of one
+  cooperative grid of up to 128 CTAs (:func:`grid_kernel_takes`: to 1,232 in
+  float64, 1,792 in float32): ``jacobi_eig_grid``
+  (``csrc/jacobi_eig_grid.cu``, W in the CTAs' shared memory, the CTAs
+  exchanging through global memory and per-CTA round flags, V replayed
+  from a log of the angles), the same reconstruction;
+* the even k past that, up to 65,536 (:func:`large_kernel_takes`):
   ``jacobi_eig_large`` (``csrc/jacobi_eig_large.cu``, W and V in global
   memory, one cooperative launch with a grid barrier a round), the same
   reconstruction;
@@ -41,7 +47,8 @@ takes a side (:func:`kernel_for`):
   ``chip_smoke.py`` holds each kernel to its own on the card.
 
 Each kernel has its launcher (``LAUNCHERS``: :func:`jacobi_eig_cuda`,
-:func:`jacobi_eig_cluster_cuda`, :func:`jacobi_eig_large_cuda`), which
+:func:`jacobi_eig_cluster_cuda`, :func:`jacobi_eig_grid_cuda`,
+:func:`jacobi_eig_large_cuda`), which
 checks its input once. A CUDA tensor of a side the launcher's kernel does
 not take, of another type or layout raises, and a build or launch error
 raises: nothing falls back.
@@ -77,6 +84,8 @@ SMEM_MAX = 232_448
 # §6, profile_cluster.py)
 CLUSTER_MIN = 4
 CLUSTER_TILES = 2560
+# the grid kernel's CTAs a matrix at most (grid_ctas)
+GRID_CTAS = 128
 
 
 def large_kernel_takes(k: int) -> bool:
@@ -114,16 +123,57 @@ def cluster_kernel_takes(k: int, dtype) -> bool:
     return large_kernel_takes(k) and bool(_cluster_sizes(k, dtype.itemsize))
 
 
+def grid_ctas(k: int) -> int:
+    """The CTAs of a ``jacobi_eig_grid`` launch at side ``k``: ``GRID_CTAS``
+    (128; at most one a slot), one CTA an SM of the cooperative grid (an
+    H100 has 132). On an H100 128 CTAs beat 64 at [1, 640] and [1, 768]
+    float64 (PERF.md §6, ``profile_grid.py``)."""
+    return min(GRID_CTAS, k // 2)
+
+
+def grid_smem_bytes(k: int, ctas: int, itemsize: int) -> int:
+    """Shared memory of one CTA of ``jacobi_eig_grid`` at side ``k`` with
+    ``ctas`` CTAs (``csrc/jacobi_eig_grid.cu``, ``grid_layout``): 2 (M + 1)
+    columns (M = ceil(h / ctas) slots, h = k/2; each arc with one spare
+    column; a column's stride k rounded up to 16 bytes); the CTA's
+    ceil(k / ctas) rows of V; the angles (2 h); two rounds' pairs (8 bytes a
+    pair); two rounds' slot plans (40 bytes a slot each) and the slots'
+    rings (32 bytes a slot); each part rounded up to 16 bytes; 32 bytes of
+    words the CTA's warps share."""
+    h = k // 2
+    M = -(-h // ctas)
+    stride = -(-k * itemsize // 16) * 16
+
+    def r16(n):
+        return -(-n // 16) * 16
+
+    return (2 * (M + 1) * stride + r16(-(-k // ctas) * k * itemsize) + r16(2 * h * itemsize)
+            + r16(8 * h) + r16(80 * M) + r16(32 * M) + 32)
+
+
+def grid_kernel_takes(k: int, dtype) -> bool:
+    """The sides that ``jacobi_eig_grid`` takes in ``dtype``: those of
+    ``jacobi_eig_large`` whose W and V's rows fit the shared memory of
+    ``grid_ctas(k)`` CTAs (to 1,232 in float64, 1,792 in float32).
+    ``kernel_for`` sends it those that no cluster holds."""
+    return large_kernel_takes(k) and grid_smem_bytes(k, grid_ctas(k),
+                                                     dtype.itemsize) <= SMEM_MAX
+
+
 def kernel_for(k: int, dtype):
     """The kernel that takes side ``k`` in ``dtype`` on a CUDA device, the
     amortized backend's one rule: "jacobi_eig" (even 4..48),
     "jacobi_eig_cluster" (2 and the even sides above 48 whose W fits a
-    cluster), "jacobi_eig_large" (the other even sides up to 65,536), or
-    None (an odd k: the reference's eigh branch)."""
+    cluster), "jacobi_eig_grid" (the other even sides whose W fits the
+    cooperative grid's shared memory), "jacobi_eig_large" (the even sides
+    past that, up to 65,536), or None (an odd k: the reference's eigh
+    branch)."""
     if kernel_takes(k):
         return "jacobi_eig"
     if cluster_kernel_takes(k, dtype):
         return "jacobi_eig_cluster"
+    if grid_kernel_takes(k, dtype):
+        return "jacobi_eig_grid"
     return "jacobi_eig_large" if large_kernel_takes(k) else None
 
 
@@ -293,6 +343,55 @@ def jacobi_eig_cluster_cuda(W, V0, stale, warm: int, full: int, n_full=None,
     return eigh_mod.sym_reconstruct(w, V), V
 
 
+def jacobi_eig_grid_cuda(W, V0, stale, warm: int, full: int, n_full=None, ctas=None):
+    """Launch ``jacobi_eig_grid`` on ``W`` and ``V0`` [B, k, k] (contiguous
+    float32/float64 CUDA tensors of a side of :func:`grid_kernel_takes`) on
+    the current stream, with ``stale`` a 0-d bool CUDA tensor: ``full``
+    sweeps from V0 when it is set, else ``warm``, in one cooperative grid
+    of ``ctas`` CTAs (by default :func:`grid_ctas`), the matrices in turn,
+    W in the CTAs' shared memory, the angles logged and replayed on V0 in
+    the same launch; then P = V max(w, 0) V' from W's diagonal as a
+    batched product (``eigh.sym_reconstruct``). Returns (P, V). Does not
+    count launches. A fault on the card (a CTA that never publishes its
+    round) ends the launch, and the stream's next synchronisation raises."""
+    _check_inputs("jacobi_eig_grid", lambda k: grid_kernel_takes(k, W.dtype), W, V0,
+                  stale, n_full)
+    if W.shape[0] == 0:
+        return torch.empty_like(W), torch.empty_like(W)
+    ctas = grid_ctas(W.shape[1]) if ctas is None else int(ctas)
+    w, V = launch_grid(cuda_build.jacobi_library(), W, V0, stale, warm, full, n_full, ctas)
+    return eigh_mod.sym_reconstruct(w, V), V
+
+
+def launch_grid(lib, W, V0, stale, warm: int, full: int, n_full, ctas: int):
+    """One launch of ``lib``'s ``jacobi_eig_grid`` entry (the Jacobi
+    library's, or a :func:`cuda_build.variant_library` of its source) on
+    checked inputs of B > 0 matrices, on the current stream: (W's diagonal
+    after the sweeps [B, k], V [B, k, k]). Raises if the launch reports an
+    error; a wait that gives up on the card raises at the stream's next
+    synchronisation."""
+    B, k, _ = W.shape
+    w = torch.empty((B, k), dtype=W.dtype, device=W.device)
+    V = torch.empty_like(W)
+    t = "f32" if W.dtype == torch.float32 else "f64"
+    # the angle log of every round the call can run, the mailboxes, the
+    # inboxes and a row-major copy of W; the CTAs' round flags, zero
+    entries = getattr(lib, f"jacobi_eig_grid_scratch_{t}")(k, ctas,
+                                                          max(warm, full) * (k - 1))
+    scratch = torch.empty(entries, dtype=W.dtype, device=W.device)
+    flags = torch.zeros(lib.jacobi_eig_grid_flag_ints(ctas), dtype=torch.int32,
+                        device=W.device)
+    err = getattr(lib, f"jacobi_eig_grid_{t}")(
+        W.data_ptr(), V0.data_ptr(), w.data_ptr(), V.data_ptr(), scratch.data_ptr(),
+        flags.data_ptr(), stale.data_ptr(), int(warm), int(full),
+        None if n_full is None else n_full.data_ptr(), B, k, ctas,
+        torch.cuda.current_stream(W.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"jacobi_eig_grid kernel launch failed: CUDA error {err} "
+                           f"(B={B}, k={k}, ctas={ctas}, {W.dtype})")
+    return w, V
+
+
 def jacobi_eig_large_cuda(W, V0, stale, warm: int, full: int, n_full=None):
     """Launch ``jacobi_eig_large`` on ``W`` and ``V0`` [B, k, k] (contiguous
     float32/float64 CUDA tensors of side 2 or an even side above 48,
@@ -323,7 +422,7 @@ def jacobi_eig_large_cuda(W, V0, stale, warm: int, full: int, n_full=None):
 # full, n_full), the others (W, V0, stale, warm, full, n_full) after
 # eigh.amortized_rotate
 LAUNCHERS = {"jacobi_eig": jacobi_eig_cuda, "jacobi_eig_cluster": jacobi_eig_cluster_cuda,
-             "jacobi_eig_large": jacobi_eig_large_cuda}
+             "jacobi_eig_grid": jacobi_eig_grid_cuda, "jacobi_eig_large": jacobi_eig_large_cuda}
 
 # the device tallies of full-sweep launches, one int32 for each key of
 # psd_project_amortized.launches on each device
@@ -364,8 +463,9 @@ def reset_counts():
 
 
 def launches_of(kernel: str) -> int:
-    """The launches of ``kernel`` ("jacobi_eig", "jacobi_eig_cluster" or
-    "jacobi_eig_large") counted since the last :func:`reset_counts`."""
+    """The launches of ``kernel`` ("jacobi_eig", "jacobi_eig_cluster",
+    "jacobi_eig_grid" or "jacobi_eig_large") counted since the last
+    :func:`reset_counts`."""
     return sum(n for (name, _, _), n in psd_project_amortized.launches.items()
                if name == kernel)
 

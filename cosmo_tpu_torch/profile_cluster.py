@@ -3,7 +3,7 @@
     python -m cosmo_tpu_torch.profile_cluster
 
 Builds ``csrc/jacobi_eig_cluster.cu`` once more with
-``-DJACOBI_CLUSTER_PROFILE`` (into ``_build/``, a library of its own) and
+``-DJACOBI_CLUSTER_PROFILE`` (``cuda_build.variant_library``) and
 runs it on the amortized backend's timed shapes ([8, 256] float64 and
 [1, 896] float32, warm and stale, made as ``chip_smoke.eig_case`` makes
 them), at every cluster size that holds W. For each it prints the device time of
@@ -21,12 +21,11 @@ Needs CUDA.
 from __future__ import annotations
 
 import ctypes
-import subprocess
 
 import numpy as np
 import torch
 
-from .kernel_timing import launch_ms
+from .kernel_timing import card, launch_ms
 from .ops import cuda_build
 from .ops import eigh as E
 from .ops import jacobi_eig as JE
@@ -36,23 +35,6 @@ SHAPES = ((256, 8, torch.float64), (896, 1, torch.float32))
 # below 896 (chip_smoke.py 10g), float32
 MAXCUT_BUCKETS = ((64, 5), (96, 17), (128, 8), (192, 5))
 PARTS = ("wait", "angles", "mailbox", "tiles")
-
-
-def _library() -> ctypes.CDLL:
-    source = cuda_build.CSRC / "jacobi_eig_cluster.cu"
-    so = cuda_build.library_path([source], "jacobi_cluster_profile")
-    if not so.is_file():
-        cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([cuda_build._nvcc(), *cuda_build.ARCH, "-std=c++17", "-O3",
-                        "-Xcompiler", "-fPIC", "-shared", "-DJACOBI_CLUSTER_PROFILE",
-                        "-o", str(so), str(source)], check=True)
-    lib = ctypes.CDLL(str(so))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for t in ("f32", "f64"):
-        getattr(lib, f"jacobi_eig_cluster_{t}").argtypes = [p, p, p, p, p, p, p, i, i, p,
-                                                            i, i, i, p]
-    lib.jacobi_eig_cluster_profile.argtypes = [p]
-    return lib
 
 
 def _case(B, k, warm, seed=5):
@@ -78,12 +60,9 @@ def main():
         raise SystemExit("profile_cluster needs a CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
-    lib = _library()
+    lib = cuda_build.variant_library("jacobi_eig_cluster.cu", "-DJACOBI_CLUSTER_PROFILE")
     device = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(card)
+    print(card())
     for k, B, dtype in SHAPES:
         for warm in (True, False):
             X, W, V0 = (torch.as_tensor(np.array(a, order="C"), dtype=dtype, device=device)

@@ -294,14 +294,17 @@ def test_kernel_for_routes_by_the_cluster_bytes(dtype, last, first_out):
     """kernel_for(k, dtype): even 4..48 to jacobi_eig; 2 and the even sides
     above 48 whose W fits a cluster of 16 CTAs' shared memory (227 KB each)
     to jacobi_eig_cluster, up to 896 in float32 and 608 in float64; the
-    even sides past that to jacobi_eig_large, up to 65,536; odd sides to
-    none."""
+    even sides past that to jacobi_eig_grid while W fits the cooperative
+    grid's shared memory, then to jacobi_eig_large, up to 65,536; odd sides
+    to none."""
     size = dtype.itemsize
     assert JE.cluster_smem_bytes(last, 16, size) <= JE.SMEM_MAX
     assert JE.cluster_smem_bytes(first_out, 16, size) > JE.SMEM_MAX
     for k in (2, 50, 56, 64, 128, 192, 256, 258, 512, last):
         assert JE.kernel_for(k, dtype) == "jacobi_eig_cluster", k
-    for k in (first_out, first_out + 2, 1024, 4096, 65536):
+    for k in (first_out, first_out + 2, 1024):
+        assert JE.kernel_for(k, dtype) == "jacobi_eig_grid", k
+    for k in (4096, 65536):
         assert JE.kernel_for(k, dtype) == "jacobi_eig_large", k
     for k in (4, 16, 48):
         assert JE.kernel_for(k, dtype) == "jacobi_eig"

@@ -4,7 +4,8 @@ cosmo_tpu in float64 on the CPU.
 On a CUDA device the amortized projection takes sides 4..48 through the
 kernel ``jacobi_eig``, side 2 and the sides above 48 through
 ``jacobi_eig_cluster`` (``csrc/jacobi_eig_cluster.cu``) where W fits a
-cluster's shared memory and ``jacobi_eig_large``
+cluster's shared memory, ``jacobi_eig_grid`` (``csrc/jacobi_eig_grid.cu``)
+where it fits the cooperative grid's and ``jacobi_eig_large``
 (``csrc/jacobi_eig_large.cu``) past that, and an odd side through the
 reference's eigh branch (``tests/test_torch_eig_cluster.py`` holds the
 cluster kernel's scheme). Here: ``compile_cones`` for the card
@@ -66,7 +67,7 @@ def _amortized_case(B, k, warm, seed):
 @pytest.mark.parametrize("side,pad,kernels", [
     (2, 1, ("jacobi_eig_cluster", "jacobi_eig_cluster")), (5, 1, (None, None)),
     (56, 1, ("jacobi_eig_cluster", "jacobi_eig_cluster")),
-    (896, 8, ("jacobi_eig_cluster", "jacobi_eig_large")),
+    (896, 8, ("jacobi_eig_cluster", "jacobi_eig_grid")),
     (48, 8, ("jacobi_eig", "jacobi_eig"))])
 def test_amortized_compiles_every_side_for_cuda(side, pad, kernels):
     """compile_cones(eigh_backend="amortized") for the card takes every
@@ -75,7 +76,7 @@ def test_amortized_compiles_every_side_for_cuda(side, pad, kernels):
     buckets as the JAX package's compile_cones and as the port's for the
     CPU, each side routed to the kernel of ``kernel_for`` in float32 and
     float64 (an odd side to none: the reference's eigh branch; 896 fits a
-    cluster in float32, not in float64)."""
+    cluster in float32, in float64 only the cooperative grid)."""
     sets = {mod: [mod.PsdConeTriangle(side * (side + 1) // 2),
                   mod.PsdConeTriangle(side * (side + 1) // 2)] for mod in (ct, pt)}
     jc = jcd.compile_cones(sets[ct], psd_pad_to=pad, eigh_backend="amortized")
@@ -90,17 +91,18 @@ def test_amortized_compiles_every_side_for_cuda(side, pad, kernels):
 
 def test_kernel_for_routes_every_side():
     """Even 4..48 to jacobi_eig, 2 and the even sides above 48 to
-    jacobi_eig_cluster while W fits a cluster and to jacobi_eig_large past
-    that (up to 65,536), odd sides to none, each named kernel with its
-    launcher; the launchers refuse CPU tensors and odd sides before any
-    build."""
+    jacobi_eig_cluster while W fits a cluster, to jacobi_eig_grid while it
+    fits the cooperative grid and to jacobi_eig_large past that (up to
+    65,536), odd sides to none, each named kernel with its launcher; the
+    launchers refuse CPU tensors and odd sides before any build."""
     for dtype in (torch.float32, torch.float64):
         assert [JE.kernel_for(k, dtype)
                 for k in (2, 3, 4, 47, 48, 49, 50, 258, 1024, 65536, 65538)] == [
             "jacobi_eig_cluster", None, "jacobi_eig", None, "jacobi_eig", None,
-            "jacobi_eig_cluster", "jacobi_eig_cluster", "jacobi_eig_large",
+            "jacobi_eig_cluster", "jacobi_eig_cluster", "jacobi_eig_grid",
             "jacobi_eig_large", None]
-    assert set(JE.LAUNCHERS) == {"jacobi_eig", "jacobi_eig_cluster", "jacobi_eig_large"}
+    assert set(JE.LAUNCHERS) == {"jacobi_eig", "jacobi_eig_cluster", "jacobi_eig_grid",
+                                 "jacobi_eig_large"}
     stale = torch.tensor(True)
     for k in (5, 50):
         W = torch.as_tensor(sym_stack(1, k, seed=k))
@@ -110,6 +112,8 @@ def test_kernel_for_routes_every_side():
             JE.jacobi_eig_large_cuda(W, W.clone(), stale, 2, 8)
         with pytest.raises(ValueError):
             JE.jacobi_eig_cluster_cuda(W, W.clone(), stale, 2, 8)
+        with pytest.raises(ValueError):
+            JE.jacobi_eig_grid_cuda(W, W.clone(), stale, 2, 8)
 
 
 def test_full_sweep_tallies_by_kernel_side_and_type():

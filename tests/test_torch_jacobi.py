@@ -99,10 +99,11 @@ def test_library_path_hashes_the_included_headers(tmp_path):
     shutil.copytree(cuda_build.CSRC, csrc)
     for name in cuda_build.JACOBI_SOURCES:
         # the large-side kernels share their rounding, not the round-parallel
-        # design
-        headers = (["jacobi_rn.cuh"] if name in ("jacobi_eig_large.cu",
-                                                 "jacobi_eig_cluster.cu")
-                   else ["jacobi_rounds.cuh"])
+        # design; the cluster and the grid kernel also the circle's geometry
+        headers = {"jacobi_eig_large.cu": ["jacobi_rn.cuh"],
+                   "jacobi_eig_cluster.cu": ["jacobi_circle.cuh", "jacobi_rn.cuh"],
+                   "jacobi_eig_grid.cu": ["jacobi_circle.cuh", "jacobi_rn.cuh"]}.get(
+                       name, ["jacobi_rounds.cuh"])
         assert [p.name for p in cuda_build._sources(csrc / name)] == [name, *headers]
 
     def path():
@@ -181,6 +182,33 @@ def test_build_compiles_each_source_then_links_once(tmp_path, monkeypatch):
         cuda_build.build(sources, "fake")
     assert not cuda_build.library_path(sources, "fake").is_file()
     assert not list((tmp_path / "build").glob("*.o"))
+
+
+def test_build_passes_a_variant_define_to_nvcc(tmp_path, monkeypatch):
+    """build() with extra flags (a variant of a source, as
+    ``cuda_build.variant_library`` builds one) hands them to each ``nvcc
+    -c`` and gives the variant a library of its own beside the plain
+    build."""
+    import sys
+
+    from cosmo_tpu_torch.ops import cuda_build
+
+    calls = tmp_path / "calls.txt"
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable, calls=str(calls)))
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    source = tmp_path / "a.cu"
+    source.write_text("// a\n")
+
+    plain = cuda_build.build([source], "a")
+    variant = cuda_build.build([source], "a", ("-DA_WAIT_NS=0",))
+    assert plain.is_file() and variant.is_file() and variant != plain
+    assert variant == cuda_build.library_path([source], "a", ("-DA_WAIT_NS=0",))
+    compiles = [line.split() for line in calls.read_text().splitlines() if " -c " in line]
+    assert ["-DA_WAIT_NS=0" in args for args in compiles] == [False, True]
 
 
 def test_register_body_takes_every_side_the_auto_rule_sends():
